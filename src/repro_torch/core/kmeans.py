@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cancellation import CancellationToken
+from repro_torch.kernels.distance.fused import fused_masked_assign_update
 from repro_torch.kernels.distance.ops import assign_clusters
 from repro_torch.kernels.distance.ref import assign_clusters_ref
 
@@ -122,6 +123,28 @@ def masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
     c_new = _new_centroids(sums, counts, c)
     shift = torch.sum(torch.abs(c_new - c))
     return assign, c_new, shift, torch.sum(d2 * w)
+
+
+def fused_masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
+    """:func:`masked_kmeans_step` via the fused kernel (``csrc/fused.cu``).
+
+    Distance, argmin, and the masked per-centroid sum/count/inertia
+    accumulation happen in one kernel call over ``x``; only the
+    empty-cluster fix-up and the shift reduction remain plain tensor ops.
+    Same (assign, c_new, shift, inertia) contract as the two-pass step.
+    """
+    assign, sums, counts, inertia = fused_masked_assign_update(x, c, mask)
+    c_new = _new_centroids(sums, counts, c)
+    shift = torch.sum(torch.abs(c_new - c))
+    return assign, c_new, shift, inertia
+
+
+def masked_step_fn(cfg: KMeansConfig):
+    """The serving hot loop's step: the fused kernel for kernel configs,
+    the plain two-pass step otherwise (the ``torch-ref`` paradigm)."""
+    if cfg.use_kernel:
+        return fused_masked_kmeans_step
+    return masked_kmeans_step
 
 
 def init_centroids(seed: Seed, x: torch.Tensor,

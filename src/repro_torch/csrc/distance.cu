@@ -19,11 +19,9 @@
 // Design:
 // - One thread owns one point and keeps a running (min, argmin) in
 //   registers; the result is written to device memory once.
-// - Centroids are staged in shared memory in tiles of kTileK, with their
-//   squared norms; a warp reads one centroid value at a time (broadcast).
-// - x is read kChunkD features at a time into registers, and kTileK
-//   accumulators stay in registers across the feature chunks, so each
-//   (point, centroid) dot product is summed in feature order 0..d-1.
+// - The search itself (centroid tiles staged in shared memory, x read a few
+//   features at a time into registers, feature-order sums) lives in
+//   assign_common.cuh, shared with the fused Lloyd step in fused.cu.
 // - Every product and sum is rounded on its own (__fmul_rn/__fadd_rn, no
 //   fused multiply-add), so the kernel is bit-identical to the plain
 //   PyTorch version in kernels/distance/ref.py, which does the same
@@ -35,11 +33,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "assign_common.cuh"
+
 namespace {
 
+using repro_assign::kTileK;
+
 constexpr int kThreads = 128;  // points per block, one per thread
-constexpr int kTileK = 32;     // centroids per shared-memory tile
-constexpr int kChunkD = 8;     // features of x held in registers at a time
 
 __global__ void __launch_bounds__(kThreads)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
@@ -52,54 +52,9 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const bool live = i < n;
   const float* xi = x + (size_t)(live ? i : 0) * d;
 
-  float best = INFINITY;
-  int best_j = 0;
-  for (int j0 = 0; j0 < k; j0 += kTileK) {
-    const int kt = min(kTileK, k - j0);
-    __syncthreads();  // the previous tile has been read by every thread
-    for (int e = threadIdx.x; e < kt * d; e += kThreads) {
-      cs[e] = c[(size_t)j0 * d + e];
-    }
-    __syncthreads();
-    if (threadIdx.x < kt) {
-      const float* cj = cs + threadIdx.x * d;
-      float s = 0.f;
-      for (int f = 0; f < d; ++f) s = __fadd_rn(s, __fmul_rn(cj[f], cj[f]));
-      cn[threadIdx.x] = s;
-    }
-    __syncthreads();
-
-    float acc[kTileK];
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) acc[j] = 0.f;
-    for (int f0 = 0; f0 < d; f0 += kChunkD) {
-      float xr[kChunkD];
-#pragma unroll
-      for (int u = 0; u < kChunkD; ++u) {
-        xr[u] = (f0 + u < d) ? __ldg(xi + f0 + u) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kTileK; ++j) {
-        if (j < kt) {
-          const float* cj = cs + j * d + f0;
-#pragma unroll
-          for (int u = 0; u < kChunkD; ++u) {
-            if (f0 + u < d) acc[j] = __fadd_rn(acc[j], __fmul_rn(xr[u], cj[u]));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
-      if (j < kt) {
-        const float score = __fsub_rn(cn[j], __fmul_rn(2.f, acc[j]));
-        if (score < best) {  // strict: the first minimum wins
-          best = score;
-          best_j = j0 + j;
-        }
-      }
-    }
-  }
+  float best;
+  int best_j;
+  repro_assign::nearest_centroid(xi, c, k, d, cs, cn, best, best_j);
   if (live) {
     idx_out[i] = best_j;
     score_out[i] = best;
@@ -112,7 +67,7 @@ extern "C" {
 
 // Shared memory one block needs for feature width d.
 size_t assign_smem_bytes(int d) {
-  return (size_t)(kTileK * d + kTileK) * sizeof(float);
+  return repro_assign::search_smem_floats(d) * sizeof(float);
 }
 
 // x: (n, d) f32, c: (k, d) f32, both contiguous on the current device.

@@ -1,0 +1,153 @@
+"""Fused masked K-Means step: one kernel call per Lloyd iteration.
+
+The unfused step (``core/kmeans.py:masked_kmeans_step``) runs the assignment
+kernel and then a one-hot matrix product over ``x`` for the centroid
+update.  ``csrc/fused.cu`` computes the assignment *and* the masked
+per-centroid sums, counts and inertia in one kernel pass over ``x`` plus a
+small deterministic reduction of per-block partials (no float atomics, so
+the sums are bitwise identical from run to run).
+
+A CPU tensor takes the plain version (:func:`fused_masked_assign_update_ref`
+in :mod:`.ref`); a CUDA tensor launches the kernel on the current stream or
+raises — there is no fallback.  ``fused_masked_assign_update.launches``
+counts kernel launches (plain runs do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.distance.ref import fused_masked_assign_update_ref
+
+# A block's shared memory: 227 KB on Hopper.
+_MAX_SMEM = 232448
+# Points per tile (one thread each) — must match kThreads in fused.cu.
+_TILE = 128
+# Per-block centroid sums held in shared memory at a time (32 KB).
+_ACC_FLOATS = 8192
+# At most this many blocks, and at most this many partial floats in all.
+_MAX_BLOCKS = 1024
+_MAX_PARTIAL_FLOATS = 1 << 24
+# fp32 counts are exact up to 2^24 rows.
+MAX_ROWS = 1 << 24
+
+__all__ = ["fused_masked_assign_update", "fused_masked_assign_update_ref"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fused_masked_assign_update": (
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
+    "fused_smem_bytes": ([_I, _I], ctypes.c_size_t),
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.library("fused", _SIGNATURES)
+
+
+def build() -> None:
+    """Build and load ``csrc/fused.cu`` now (it is built at first use
+    otherwise); raises :class:`~repro_torch.kernels._build.KernelBuildError`
+    if ``nvcc`` is missing or refuses it."""
+    _lib()
+
+
+def _check_inputs(x: torch.Tensor, c: torch.Tensor,
+                  mask: torch.Tensor) -> None:
+    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
+        raise ValueError(f"need x (n, d) and c (k, d), got {tuple(x.shape)} "
+                         f"and {tuple(c.shape)}")
+    if c.shape[0] < 1:
+        raise ValueError("need at least one centroid")
+    if mask.shape != (x.shape[0],) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool ({x.shape[0]},), got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    for name, t in (("x", x), ("c", c), ("mask", mask)):
+        if t.device != x.device:
+            raise ValueError(f"x on {x.device} but {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("x", x), ("c", c)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"n={x.shape[0]} rows: fp32 counts are exact only "
+                         f"up to {MAX_ROWS}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def launch_shape(n: int, k: int, d: int) -> Tuple[int, int, int]:
+    """(tiles_per_block, blocks, acc_k) of pass 1 for this problem.
+
+    A function of the shape alone, so the same inputs always reduce in the
+    same order.  Blocks are capped so the partials stay a few MB and pass 2
+    stays short; ``acc_k`` centroids' sums fit the shared-memory budget.
+    """
+    stride = k * d + k + 1
+    tiles = -(-n // _TILE)
+    max_blocks = max(1, min(_MAX_BLOCKS, _MAX_PARTIAL_FLOATS // stride))
+    tiles_per_block = -(-tiles // max_blocks)
+    blocks = -(-tiles // tiles_per_block)
+    acc_k = max(1, min(k, _ACC_FLOATS // d))
+    return tiles_per_block, blocks, acc_k
+
+
+def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
+    n, d = x.shape
+    k = c.shape[0]
+    stride = k * d + k + 1
+    if n * d >= 2**31 or stride >= 2**31:
+        raise ValueError(f"shape too large for int32 indexing: n={n}, k={k}, "
+                         f"d={d}")
+    tiles_per_block, blocks, acc_k = launch_shape(n, k, d)
+    lib = _lib()
+    if lib.fused_smem_bytes(d, acc_k) > _MAX_SMEM:
+        raise ValueError(f"d={d} needs more shared memory than a block has")
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    part = torch.empty(blocks * stride, dtype=torch.float32, device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_masked_assign_update(
+            x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d,
+            tiles_per_block, acc_k, idx.data_ptr(), part.data_ptr(),
+            out.data_ptr(), stream)
+    _build.check(lib, err, "fused_masked_assign_update")
+    fused_masked_assign_update.launches += 1
+    return (idx, out[:k * d].view(k, d), out[k * d:k * d + k],
+            out[k * d + k])
+
+
+def fused_masked_assign_update(
+        x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused assignment + masked accumulation.
+
+    Args:
+      x: (n, d) float32 points.
+      c: (k, d) float32 centroids, same device.
+      mask: (n,) bool — False rows are assigned but carry no weight.
+    Returns:
+      (assignment int32 (n,), masked sums f32 (k, d), masked counts f32
+      (k,), masked inertia f32 ()).
+    """
+    _check_inputs(x, c, mask)
+    if not x.is_cuda:
+        return fused_masked_assign_update_ref(x, c, mask)
+    n, d = x.shape
+    k = c.shape[0]
+    if n == 0:
+        zeros = torch.zeros(k * d + k + 1, dtype=torch.float32,
+                            device=x.device)
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                zeros[:k * d].view(k, d), zeros[k * d:k * d + k],
+                zeros[k * d + k])
+    return _launch(x, c, mask)
+
+
+fused_masked_assign_update.launches = 0

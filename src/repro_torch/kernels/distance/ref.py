@@ -9,6 +9,10 @@ at the main path's shape would take gigabytes.
 
 :func:`pairwise_sq_dists_ref` is the paper's direct form, an independent
 oracle for small inputs.
+
+:func:`fused_masked_assign_update_ref` is the plain twin of the fused
+masked Lloyd step (``csrc/fused.cu``): the same assignment, then the masked
+per-centroid sums and counts as a one-hot matrix product, chunked by rows.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch
 
 # Elements of one (rows, k) temporary: 64 MiB of fp32.
 _CHUNK_ELEMS = 1 << 24
+# The fused step clamps the min score here (the reference's _BIG).
+SCORE_CLAMP = 3.4e38
 
 
 def pairwise_sq_dists_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -76,3 +82,31 @@ def assign_clusters_ref(x: torch.Tensor, c: torch.Tensor
     """Returns (assignment int32 (n,), min squared distance f32 (n,))."""
     idx, score = assign_scores_ref(x, c)
     return idx, add_point_norms(x, score)
+
+
+def fused_masked_assign_update_ref(x: torch.Tensor, c: torch.Tensor,
+                                   mask: torch.Tensor):
+    """(assignment int32 (n,), masked sums f32 (k, d), masked counts f32
+    (k,), masked inertia f32 ()) — what ``csrc/fused.cu`` computes.
+
+    Masked-out rows are assigned but add nothing; the inertia is
+    sum over unmasked rows of max(min(score, 3.4e38) + ||x||^2, 0).
+    """
+    x = x.float()
+    c = c.float()
+    n, d = x.shape
+    k = c.shape[0]
+    w = mask.to(device=x.device, dtype=torch.bool)
+    idx, score = assign_scores_ref(x, c)
+    d2 = add_point_norms(x, torch.clamp_max(score, SCORE_CLAMP))
+    inertia = torch.where(w, d2, torch.zeros_like(d2)).sum()
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    cols = torch.arange(k, dtype=idx.dtype, device=x.device)
+    rows = max(1, _CHUNK_ELEMS // max(k, 1))
+    for r0 in range(0, n, rows):
+        onehot = ((idx[r0:r0 + rows, None] == cols[None, :])
+                  & w[r0:r0 + rows, None]).to(torch.float32)
+        sums += onehot.T @ x[r0:r0 + rows]
+        counts += onehot.sum(0)
+    return idx, sums, counts, inertia

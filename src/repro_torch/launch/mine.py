@@ -2,7 +2,7 @@
 cancellation, persistence and progress readout, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.mine --algo dbscan \
-        --features 2 --clusters 6 --size 1024 --workdir /tmp/mine
+        --features 2 --clusters 6 --size 1024 --workdir "$(mktemp -d)"
 
 The job runs on the CUDA device unless ``--device cpu`` is given; with no
 GPU and no ``--device cpu`` it raises instead of running on the host.
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
 
 import torch
@@ -114,13 +115,17 @@ def main() -> None:
     ap.add_argument("--features", type=int, default=2)
     ap.add_argument("--clusters", type=int, default=6)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--workdir", default="/tmp/repro_mine")
+    ap.add_argument("--workdir", default=None,
+                    help="job store and checkpoints (default: a new "
+                         "directory under TMPDIR)")
     ap.add_argument("--no-kernel", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args()
     out = run_mining_job(
         algo=args.algo, features=args.features, clusters=args.clusters,
-        size=args.size, workdir=args.workdir, use_kernel=not args.no_kernel,
+        size=args.size,
+        workdir=args.workdir or tempfile.mkdtemp(prefix="repro_mine_"),
+        use_kernel=not args.no_kernel,
         device=args.device,
     )
     out.pop("labels")

@@ -11,6 +11,7 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 import pytest
 import torch
 
+from repro_torch.kernels.distance import fused as fops
 from repro_torch.kernels.distance import ops as dops, ref as dref
 from repro_torch.kernels.neighbor import ops as nops, ref as nref
 
@@ -61,6 +62,36 @@ def test_neighbor_kernels_are_exact(gen, n, d, eps):
                            nref.expand_frontier_ref(x, f, eps))
 
 
+@pytest.mark.parametrize("n,k,d,n_real", [
+    (1, 1, 1, 1),          # one point
+    (1000, 6, 2, 1000),    # none masked
+    (513, 40, 3, 400),     # k > one centroid tile, n not a tile multiple
+    (300, 70, 300, 250),   # d = 300: the sums take two centroid ranges
+    (777, 9, 5, 0),        # all masked
+    (40000, 1024, 32, 30000),  # k > rows per block, several blocks per SM
+])
+def test_fused_kernel_matches_twin(gen, n, k, d, n_real):
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    mask = (torch.arange(n) < n_real).cuda()
+    before = fops.fused_masked_assign_update.launches
+    idx, sums, counts, inertia = fops.fused_masked_assign_update(x, c, mask)
+    ridx, rsums, rcounts, rinert = dref.fused_masked_assign_update_ref(
+        x, c, mask)
+    aidx, _ = dops.assign_clusters(x, c)
+    torch.cuda.synchronize()
+    assert fops.fused_masked_assign_update.launches == before + 1
+    assert torch.equal(idx, ridx) and torch.equal(idx, aidx)
+    assert torch.equal(counts, rcounts)
+    assert int(counts.sum()) == n_real
+    assert torch.allclose(sums, rsums, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
+    # no float atomics: a second launch gives the same bits
+    again = fops.fused_masked_assign_update(x, c, mask)
+    for a, b in zip((idx, sums, counts, inertia), again):
+        assert torch.equal(a, b)
+
+
 def test_cuda_wrappers_refuse_bad_inputs(gen):
     x = torch.randn(64, 2, generator=gen).cuda()
     with pytest.raises(ValueError, match="contiguous"):
@@ -69,3 +100,10 @@ def test_cuda_wrappers_refuse_bad_inputs(gen):
         dops.assign_clusters(x, x[:3].cpu())
     with pytest.raises(ValueError):
         nops.expand_frontier(x, torch.zeros(64, dtype=torch.bool), 1.0)
+    with pytest.raises(ValueError, match="mask must be bool"):
+        fops.fused_masked_assign_update(x, x[:3].contiguous(),
+                                        torch.ones(64, device="cuda"))
+    with pytest.raises(TypeError, match="float32"):
+        fops.fused_masked_assign_update(
+            x.double(), x[:3].double().contiguous(),
+            torch.ones(64, dtype=torch.bool, device="cuda"))

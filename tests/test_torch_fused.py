@@ -1,0 +1,159 @@
+"""The port's fused masked Lloyd step against the reference's fused kernel.
+
+The reference runs its Pallas kernel in interpret mode on the CPU (as
+``tests/test_fused_kernel.py`` does); the port's wrapper takes its plain
+version for CPU tensors.  Assignments must be equal; sums, counts,
+centroids, shift and inertia agree within rtol = atol = 1e-5 (the two
+packages sum in different orders).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import kmeans as jkmeans
+from repro.kernels.distance.fused import (
+    fused_masked_assign_update as jax_fused,
+)
+from repro_torch.core import kmeans
+from repro_torch.kernels.distance import fused
+from repro_torch.kernels.distance.ref import fused_masked_assign_update_ref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _problem(n, k, d, seed, n_real=None):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    mask = np.arange(n) < (n if n_real is None else n_real)
+    return x, c, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+def _cfg(k, use_kernel=True):
+    return kmeans.KMeansConfig(k=k, use_kernel=use_kernel)
+
+
+CASES = [
+    (128, 4, 2, None),    # full batch, no padding
+    (256, 8, 4, 200),     # padded tail carries no weight
+    (64, 8, 2, 8),        # mostly padding (a near-empty joined slot)
+    (96, 16, 3, 96),      # k big relative to n: empty clusters likely
+    (5, 8, 2, 5),         # k > n — every surplus centroid stays empty
+    (513, 6, 7, 400),     # nothing divides the tile sizes
+]
+
+
+@pytest.mark.parametrize("n,k,d,n_real", CASES)
+def test_fused_update_matches_reference_kernel(n, k, d, n_real):
+    x, c, mask = _problem(n, k, d, seed=n * 31 + k, n_real=n_real)
+    ref = jax_fused(jnp.asarray(x), jnp.asarray(c), jnp.asarray(mask))
+    before = fused.fused_masked_assign_update.launches
+    got = fused.fused_masked_assign_update(*_t(x, c, mask))
+    assert fused.fused_masked_assign_update.launches == before  # CPU: twin
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    for r, g, name in zip(ref[1:], got[1:], ("sums", "counts", "inertia")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("n,k,d,n_real", CASES)
+def test_fused_step_matches_reference_step(n, k, d, n_real):
+    x, c, mask = _problem(n, k, d, seed=n * 31 + k, n_real=n_real)
+    jcfg = jkmeans.KMeansConfig(k=k, use_kernel=True)
+    ref = jkmeans.fused_masked_kmeans_step(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(mask), jcfg)
+    got = kmeans.fused_masked_kmeans_step(*_t(x, c, mask), _cfg(k))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    for r, g, name in zip(ref[1:], got[1:], ("centroids", "shift",
+                                              "inertia")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name,
+                                   **TOL)
+    # and the port's own two-pass step agrees with its fused step
+    plain = kmeans.masked_kmeans_step(*_t(x, c, mask), _cfg(k, False))
+    assert torch.equal(plain[0], got[0])
+    for p, g in zip(plain[1:], got[1:]):
+        torch.testing.assert_close(g, p, **TOL)
+
+
+def test_empty_clusters_keep_old_centers():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0.0, 0.01, size=(64, 2)).astype(np.float32)
+    c = np.array([[0.0, 0.0], [50.0, 50.0], [-50.0, 50.0], [50.0, -50.0]],
+                 np.float32)
+    mask = np.ones((64,), bool)
+    assign, c_new, _, _ = kmeans.fused_masked_kmeans_step(
+        *_t(x, c, mask), _cfg(4))
+    np.testing.assert_array_equal(assign.numpy(), np.zeros(64))
+    np.testing.assert_array_equal(c_new.numpy()[1:], c[1:])
+    np.testing.assert_allclose(c_new.numpy()[0], x.mean(0), rtol=1e-5,
+                               atol=1e-6)
+    jref = jkmeans.fused_masked_kmeans_step(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(mask),
+        jkmeans.KMeansConfig(k=4))
+    np.testing.assert_allclose(c_new.numpy(), np.asarray(jref[1]), **TOL)
+
+
+def test_fully_masked_batch_is_inert():
+    x, c, _ = _problem(32, 4, 2, seed=7)
+    mask = np.zeros((32,), bool)
+    _, c_new, shift, inertia = kmeans.fused_masked_kmeans_step(
+        *_t(x, c, mask), _cfg(4))
+    np.testing.assert_array_equal(c_new.numpy(), c)
+    assert float(shift) == 0.0
+    assert float(inertia) == 0.0
+
+
+def test_raw_fused_accumulators_match_manual():
+    x, c, mask = _problem(200, 6, 3, seed=3, n_real=150)
+    idx, sums, counts, inertia = fused_masked_assign_update_ref(
+        *_t(x, c, mask))
+    w = mask.astype(np.float32)
+    d2 = ((x[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    ref_idx = d2.argmin(1)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    onehot = np.eye(6, dtype=np.float32)[ref_idx] * w[:, None]
+    np.testing.assert_allclose(sums.numpy(), onehot.T @ x, **TOL)
+    np.testing.assert_array_equal(counts.numpy(), onehot.sum(0))
+    np.testing.assert_allclose(float(inertia), float((d2.min(1) * w).sum()),
+                               rtol=1e-5)
+
+
+def test_masked_step_fn_routes_by_config():
+    assert kmeans.masked_step_fn(_cfg(4, False)) is kmeans.masked_kmeans_step
+    assert (kmeans.masked_step_fn(_cfg(4))
+            is kmeans.fused_masked_kmeans_step)
+    x, c, mask = _problem(128, 4, 2, seed=11, n_real=100)
+    ref = kmeans.masked_step_fn(_cfg(4, False))(*_t(x, c, mask),
+                                                _cfg(4, False))
+    got = kmeans.masked_step_fn(_cfg(4))(*_t(x, c, mask), _cfg(4))
+    assert torch.equal(ref[0], got[0])
+    torch.testing.assert_close(got[1], ref[1], **TOL)
+
+
+def test_wrapper_checks_inputs():
+    x, c, mask = _t(*_problem(16, 3, 2, seed=1))
+    with pytest.raises(ValueError, match="mask must be bool"):
+        fused.fused_masked_assign_update(x, c, mask.float())
+    with pytest.raises(TypeError, match="float32"):
+        fused.fused_masked_assign_update(x.double(), c.double(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_masked_assign_update(x.T.contiguous().T, c, mask)
+
+
+def test_launch_shape_bounds_the_partials():
+    # the service shape: ~1M rows, 64 clusters of 32 features
+    tpb, blocks, acc_k = fused.launch_shape(1 << 20, 64, 32)
+    assert blocks <= 1024 and tpb * blocks * 128 >= 1 << 20
+    assert acc_k == 64
+    # large k: the sums take several shared-memory ranges, partials stay
+    # under 2^24 floats
+    tpb, blocks, acc_k = fused.launch_shape(65536, 1024, 32)
+    assert blocks * (1024 * 32 + 1024 + 1) <= 1 << 24
+    assert acc_k == 256
+    assert fused.launch_shape(5, 8, 2) == (1, 1, 8)

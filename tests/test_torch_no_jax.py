@@ -1,5 +1,6 @@
-"""The port stands alone: a CPU mining job in a fresh interpreter loads
-neither jax nor anything of the reference package."""
+"""The port stands alone: a CPU mining job and a CPU service round trip in
+a fresh interpreter load neither jax nor anything of the reference
+package."""
 
 import os
 import subprocess
@@ -16,6 +17,17 @@ for algo in ("kmeans", "dbscan"):
     out = run_mining_job(algo=algo, features=2, clusters=3, size=64,
                          workdir=tempfile.mkdtemp(), device="cpu")
     assert out["final_state"] == "SUCCEEDED", out
+import numpy as np
+import repro_torch.service
+from repro_torch.launch import serve_mine
+work = serve_mine.build_workload(2, 1, "mixed", points=16)
+with repro_torch.service.MiningClient(tempfile.mkdtemp(), device="cpu",
+                                      max_wait_s=0.001) as client:
+    results = []
+    failures = serve_mine.drive(client, work, rate=0, executor="cuda-kernel",
+                                results=results)
+assert failures == {"suspended": 0, "dropped": 0, "rejected": 0}, failures
+assert [r["algo"] for r in results] == ["dbscan", "kmeans"], results
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
