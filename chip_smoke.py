@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's mining paths on one CUDA card and check them.
+"""Drive the PyTorch port's mining and LM serving paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -17,9 +18,13 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    kernel's, counts exact, sums and inertia within 1e-4 relative, two
    launches bitwise equal); eps-degree and expansion at n = 65536, d = 4,
    eps = 2 with a ~5% frontier (exact; a differing degree must be explained
-   by a pair within 1e-5 * eps^2 of the boundary in float64).  Times
-   kernel, plain version and a composed PyTorch yardstick (``library_ms``,
-   never called by the port).
+   by a pair within 1e-5 * eps^2 of the boundary in float64); flash
+   attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
+   bf16, causal) and three more (odd length with GQA, full attention at
+   D 96, a narrow head), within 2e-4 (fp32) / 3e-2 (bf16) of the plain
+   version, two launches bitwise equal.  Times kernel, plain version and a
+   PyTorch yardstick (``library_ms``, never called by the port; SDPA for
+   attention).
 3. Slice 1's path, the one-job app, at full width through
    ``run_mining_job``: K-Means on 1,048,576 points of 32 features with 64
    clusters, and DBSCAN on 65,536 points of 4 features, each against its
@@ -36,6 +41,15 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    card; K-Means final inertia matches the same requests on ``torch-ref``
    within 1e-4 relative, and both lanes' cached steps give the same step-1
    assignment on a padded item.
+3c. Slice 3's path, LM serving, through ``serve.serve_batch`` at OLMo-1B's
+   full width (16 layers, d_model 2048, vocab 50304, synthetic bf16
+   weights): batch 4, prompt 4096, 32 generated tokens.  The flash kernel
+   must launch once per layer of the prefill (16) and never in decode, and
+   every logit must be finite.  Then, in fp32 at the same widths (batch 2,
+   prompt 1024, 8 tokens), the kernel route against the same run with the
+   layers' attention patched to the plain version: prefill logits within
+   1e-4 of the largest logit, greedy tokens equal.  The bf16 run's distance
+   from the plain route is printed, not gated.
 4. Checks small runs against the sequential DBSCAN oracle, that a
    cancelled job ends SUSPENDED, and (4b) that a service batch preempted
    mid-run on the card ends SUSPENDED and resumes in a fresh service to the
@@ -48,6 +62,8 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +77,7 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12      # FLOP/s
+PEAK_BF16 = 989e12     # FLOP/s, dense tensor cores
 PEAK_BYTES = 3.35e12   # byte/s
 
 ASSIGN_SHAPE = dict(features=32, clusters=64, size=16384)   # n = 2^20
@@ -83,6 +100,21 @@ SVC_MAX_BATCH = 4
 PREEMPT_KMEANS = dict(features=32, clusters=64, points=4096)
 PREEMPT_ITERS = 1000
 
+# Flash attention on the card: (what, B, S, H, KV, D, dtype, causal).  The
+# first is OLMo-1B's prefill at the serving shape; the row's timing is there.
+ATTN_SHAPES = [
+    ("OLMo-1B prefill", 4, 4096, 16, 16, 128, "bfloat16", True),
+    ("odd length, GQA", 2, 1000, 32, 2, 128, "float32", True),
+    ("full attention", 1, 517, 12, 12, 96, "float32", False),
+    ("narrow head", 2, 300, 8, 8, 64, "bfloat16", True),
+]
+# the reference's own flash-test tolerances (tests/test_parallel.py)
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# The LM serving phase: OLMo-1B at full width, and the fp32 check's shape.
+SERVE = dict(arch="olmo-1b", batch=4, prompt_len=4096, gen=32)
+SERVE_CHECK = dict(batch=2, prompt_len=1024, gen=8)
+SERVE_LOGIT_RTOL = 1e-4
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -97,9 +129,9 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple:
+def bound(bytes_moved: float, flops: float, peak: float = PEAK_FP32) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32 * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -144,7 +176,7 @@ def build(build_mod) -> None:
     t0 = time.time()
     build_mod.build_all()
     log(f"build: {time.time() - t0:.2f} s")
-    for name in ("distance", "fused", "neighbor"):
+    for name in ("attention", "distance", "fused", "neighbor"):
         regs = sorted({ln.split(":", 1)[1].strip()
                        for ln in build_mod.build_log(name).splitlines()
                        if "registers" in ln})
@@ -349,6 +381,233 @@ def kernel_neighbor(torch, mods) -> list:
              bound_ms=exp_b, bound_by=exp_by, library_ms=exp_lib,
              shape=f"n={n} d={d} eps={eps} frontier={nf}", **common),
     ]
+
+
+def attention_work(b, s, h, kv, d, itemsize, causal) -> tuple:
+    """(bytes, operations) that attention must move and do: q, k, v read
+    once and o written once; 2 * 2 * D operations per live (query, key)
+    pair (the causal ones only: this run's queries and keys align)."""
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * itemsize
+    pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
+    return nbytes, 4.0 * d * pairs
+
+
+def kernel_attention(torch, mods) -> dict:
+    aops, aref = mods["aops"], mods["aref"]
+    F = torch.nn.functional
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    row = None
+    for what, b, s, h, kv, d, dt, causal in ATTN_SHAPES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, s, h, d, generator=g, device=DEV).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=g, device=DEV).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=g, device=DEV).to(dtype)
+        out = aops.flash_attention(q, k, v, causal=causal)
+        again = aops.flash_attention(q, k, v, causal=causal)
+        ref = aref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        label = f"{what} (B={b} S={s} H={h} KV={kv} D={d} {dt} causal={causal})"
+        check(bool(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                  atol=tol)),
+              f"flash attention {label}: differs from the plain version by "
+              f"up to {err}")
+        check(bool(torch.equal(out, again)),
+              f"flash attention {label}: two launches differ")
+        del ref, again
+        ms = time_ms(torch, lambda: aops.flash_attention(q, k, v,
+                                                         causal=causal),
+                     reps=10)
+        nbytes, ops = attention_work(b, s, h, kv, d, q.element_size(), causal)
+        b32, _ = bound(nbytes, ops, PEAK_FP32)
+        log(f"flash attention {label}: max |err| {err!r} (tol {tol}), two "
+            f"launches bitwise equal, {ms:.3f} ms, {ops:.4g} operations, "
+            f"fp32 bound {b32:.4f} ms")
+        if row is not None:
+            continue
+        plain = time_ms(torch, lambda: aref.attention_ref(q, k, v,
+                                                          causal=causal),
+                        reps=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=10)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        bnd, by = bound(nbytes, ops, peak)
+        row = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/attention.cu",
+                   replaces="src/repro/kernels/attention/attention.py:42",
+                   max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                   bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+                   shape=f"B={b} S={s} H={h} KV={kv} D={d} {dt} "
+                         f"causal={causal}",
+                   library_call="torch.nn.functional."
+                                "scaled_dot_product_attention")
+        del q, k, v, qt, kt, vt
+    return row
+
+
+@contextlib.contextmanager
+def plain_attention(mods):
+    """The layers' one attention call patched to the plain version, for the
+    length of the block (the package has no switch for it)."""
+    layers, aref = mods["layers"], mods["aref"]
+    saved = layers.flash_attention
+    layers.flash_attention = (
+        lambda q, k, v, causal=True: aref.attention_ref(q, k, v,
+                                                        causal=causal))
+    try:
+        yield
+    finally:
+        layers.flash_attention = saved
+
+
+def lm_serving_path(torch, mods, counters) -> dict:
+    """Slice 3's main path: LM serving at OLMo-1B's full width."""
+    serve, lm, configs = mods["serve"], mods["lm"], mods["configs"]
+    cfg = configs.get_config(SERVE["arch"])
+    # first-call set-up (cuBLAS handles, the kernel library) outside the
+    # timed run
+    t0 = time.time()
+    serve.serve_batch(arch=SERVE["arch"], smoke=False, batch=1, prompt_len=64,
+                      gen=2, device=DEV, seed=SEED)
+    log(f"serve warm-up (batch 1, prompt 64): {time.time() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.time()
+    out = serve.serve_batch(smoke=False, device=DEV, seed=SEED, **SERVE)
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"serve: {launches['flash_attention']} flash launches for "
+          f"{cfg.n_layers} layers (one per prefill layer, none in decode)")
+    check(all(n == 0 for name, n in launches.items()
+              if name != "flash_attention"),
+          f"serve: a mining kernel launched: {launches}")
+    check(out["logits_finite"], "serve: a logit is not finite")
+    gen = out["generated"]
+    check(gen is not None and tuple(gen.shape) == (SERVE["batch"],
+                                                   SERVE["gen"]),
+          f"serve: generated {None if gen is None else tuple(gen.shape)}")
+    check(bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          "serve: a token outside the vocabulary")
+    log(f"serve {SERVE['arch']} full width bf16 (batch {SERVE['batch']}, "
+        f"prompt {SERVE['prompt_len']}, gen {SERVE['gen']}): prefill_s "
+        f"{out['prefill_s']!r}, decode_s {out['decode_s']!r} "
+        f"({out['decode_s'] / SERVE['gen'] * 1e3:.3f} ms per token), "
+        f"tokens_per_s {out['tokens_per_s']!r}, wall with weight init "
+        f"{wall:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+        f"launches {launches['flash_attention']}, all logits finite")
+    del out
+    profile_serving(torch, mods, cfg)
+
+    # the kernel route against the plain route, fp32, same weights/prompts
+    c = SERVE_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    params = lm.init_params(g, cfg32, device=DEV)
+    prompts = torch.randint(0, cfg.vocab, (c["batch"], c["prompt_len"]),
+                            generator=g, device=DEV)
+    reset(counters)
+    a = serve.generate(params, prompts, cfg32, gen=c["gen"])
+    check(counters["flash_attention"].launches == cfg.n_layers,
+          "fp32 check: the kernel route did not launch once per layer")
+    with plain_attention(mods):
+        reset(counters)
+        b = serve.generate(params, prompts, cfg32, gen=c["gen"])
+        check(counters["flash_attention"].launches == 0,
+              "fp32 check: the plain route launched the kernel")
+    la = a["prefill_logits"][..., :cfg.vocab]
+    lb = b["prefill_logits"][..., :cfg.vocab]
+    diff = float((la - lb).abs().max())
+    scale = float(lb.abs().max())
+    check(a["logits_finite"] and b["logits_finite"],
+          "fp32 check: a logit is not finite")
+    check(diff <= SERVE_LOGIT_RTOL * scale,
+          f"fp32 check: prefill logits differ by {diff} (largest |logit| "
+          f"{scale}, limit {SERVE_LOGIT_RTOL} relative)")
+    check(bool(torch.equal(a["generated"], b["generated"])),
+          "fp32 check: greedy tokens differ between the kernel and plain "
+          "routes")
+    log(f"serve fp32 check (batch {c['batch']}, prompt {c['prompt_len']}, "
+        f"gen {c['gen']}): kernel vs plain route prefill logits max |diff| "
+        f"{diff!r} of largest |logit| {scale!r} "
+        f"(rel {diff / scale!r}), {c['gen']} greedy tokens equal; prefill_s "
+        f"kernel {a['prefill_s']!r} / plain {b['prefill_s']!r}")
+    del params, a
+
+    # bf16 (the serving dtype) on the same draws, printed, not gated
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    params = lm.init_params(g, cfg, device=DEV)
+    a16 = serve.generate(params, prompts, cfg, gen=c["gen"])
+    with plain_attention(mods):
+        b16 = serve.generate(params, prompts, cfg, gen=c["gen"])
+    l16 = a16["prefill_logits"][..., :cfg.vocab]
+    log(f"serve bf16 (same draws, same shape): prefill logits max |diff| "
+        f"from the fp32 plain route "
+        f"{float((l16 - lb).abs().max())!r}, from the bf16 plain route "
+        f"{float((l16 - b16['prefill_logits'][..., :cfg.vocab]).abs().max())!r}"
+        f"; greedy tokens equal to fp32: "
+        f"{bool(torch.equal(a16['generated'], b['generated']))}")
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_window(torch, label, fn) -> None:
+    """Run ``fn`` under ``torch.profiler``; print the device's busy share of
+    the window's wall time and the kernels that took the most device time.
+    Only the device's own entries (kernels, copies, memsets) are summed: the
+    host ops that launched them carry the same time again."""
+    prof_mod = torch.profiler
+    acts = [prof_mod.ProfilerActivity.CPU, prof_mod.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with prof_mod.profile(activities=acts) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    device = torch.autograd.DeviceType.CUDA
+    evts = [e for e in prof.key_averages()
+            if e.device_type == device and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in evts)
+    top = sorted(evts, key=_device_us, reverse=True)[:6]
+    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiler on), "
+        f"device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of the "
+        f"wall, {sum(e.count for e in evts)} device ops; top: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {_device_us(e) / 1e3:.3f} ms"
+            for e in top))
+
+
+def profile_serving(torch, mods, cfg) -> None:
+    """Where the serving path's time goes: prefill and 8 decode steps at
+    the timed run's shape, each under the profiler."""
+    lm = mods["lm"]
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    params = lm.init_params(g, cfg, device=DEV)
+    b, p, n = SERVE["batch"], SERVE["prompt_len"], 8
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=g, device=DEV)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = lm.prefill_step(
+            params, prompts, cfg, max_seq=p + n)
+
+    def decode():
+        logits, cache = state["logits"], state["cache"]
+        for i in range(n):
+            tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            logits, cache = lm.decode_step(params, cache, tok, p + i, cfg)
+
+    # the profiler's first window pays its own set-up (seconds): spend it
+    # on a trivial one
+    profile_window(torch, "warm-up", lambda: torch.ones(8, device=DEV) + 1)
+    profile_window(torch, f"prefill (batch {b}, prompt {p})", prefill)
+    profile_window(torch, f"decode ({n} steps, batch {b})", decode)
 
 
 def workdir(mods, prefix: str) -> str:
@@ -693,21 +952,27 @@ def main() -> int:
     from repro_torch.core import dbscan, kmeans
     from repro_torch.core import cancellation as cancel
     from repro_torch.data import synthetic as synth
+    from repro_torch import configs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as aops, ref as aref
     from repro_torch.kernels.distance import fused as fops
     from repro_torch.kernels.distance import ops as dops, ref as dref
     from repro_torch.kernels.neighbor import ops as nops, ref as nref
-    from repro_torch.launch import mine, serve_mine
+    from repro_torch.launch import mine, serve, serve_mine
+    from repro_torch.models import layers, lm
     from repro_torch.runtime import backend
     from repro_torch import service
 
     mods = dict(dops=dops, dref=dref, fops=fops, nops=nops, nref=nref,
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
-                cancel=cancel, serve_mine=serve_mine, service=service)
+                cancel=cancel, serve_mine=serve_mine, service=service,
+                aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
+                configs=configs)
     counters = {"assign_clusters": dops.assign_clusters,
                 "fused_masked_assign_update": fops.fused_masked_assign_update,
                 "epsilon_degree": nops.epsilon_degree,
-                "expand_frontier": nops.expand_frontier}
+                "expand_frontier": nops.expand_frontier,
+                "flash_attention": aops.flash_attention}
     t_start = time.time()
     card = card_line()
     log(f"card: {card}")
@@ -721,7 +986,8 @@ def main() -> int:
         try:
             build(_build)
             rows = [kernel_assign(torch, mods), kernel_fused(torch, mods),
-                    *kernel_neighbor(torch, mods)]
+                    *kernel_neighbor(torch, mods),
+                    kernel_attention(torch, mods)]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
             log(f"one-job path: {time.time() - t_path:.1f} s, launches "
@@ -730,6 +996,10 @@ def main() -> int:
             svc_launches = service_path(torch, mods, counters)
             log(f"service path: {time.time() - t_path:.1f} s, launches "
                 f"{svc_launches}")
+            t_path = time.time()
+            lm_launches = lm_serving_path(torch, mods, counters)
+            log(f"LM serving path: {time.time() - t_path:.1f} s, launches "
+                f"{lm_launches}")
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)
@@ -742,6 +1012,7 @@ def main() -> int:
     launches = dict(mine_launches)
     launches.update({k: v for k, v in svc_launches.items()
                      if k != "assign_clusters"})
+    launches.update(lm_launches)
     for row in rows:
         row["launches"] = launches[row["name"]]
         log(json.dumps({"kernel": row["name"], "ms": row["ms"],
@@ -752,11 +1023,13 @@ def main() -> int:
                             row["name"]),
                         "launches_service_path": svc_launches.get(
                             row["name"]),
+                        "launches_lm_path": lm_launches.get(row["name"]),
                         "max_err": row["max_abs_err"],
                         "library_ms": row["library_ms"],
                         "library_call": row.get("library_call"),
                         "kernel_only_ms": row.get("kernel_only_ms"),
                         "launch_shape": row.get("launch_shape"),
+                        "bound_fp32_ms": row.get("bound_fp32_ms"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

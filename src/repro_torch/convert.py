@@ -1,11 +1,13 @@
-"""Carry data and run state between the reference package and this port.
+"""Carry data, run state and LM weights between the reference package and
+this port.
 
-The system has no weights: its state is the points, the K-Means centroids
-with their iteration counter, and the DBSCAN run snapshot.  Every function
-here takes or returns plain numpy in the reference package's layout (what
-its results hold and what ``DBSCANRunState.as_tree()`` gives), so a run
-suspended in one package resumes in the other without either importing the
-other.  The port's own ``DBSCANRunState.as_tree()`` already is that layout:
+The mining paths have no weights: their state is the points, the K-Means
+centroids with their iteration counter, and the DBSCAN run snapshot.  The
+LM serving path has its parameter tree.  Every function here takes or
+returns plain numpy in the reference package's layout (what its results
+hold, what ``DBSCANRunState.as_tree()`` gives, the LM's nested param dicts),
+so a run suspended in one package resumes in the other, and one set of
+weights runs in both, without either importing the other.  The port's own ``DBSCANRunState.as_tree()`` already is that layout:
 the reference's ``DBSCANRunState.from_tree`` takes it as it is.
 """
 
@@ -81,3 +83,19 @@ def dbscan_state_from_tree(tree: Mapping[str, object]) -> DBSCANRunState:
     return DBSCANRunState.from_tree(
         {"packed": packed, "frontier": frontier.astype(bool), "cid": cid,
          "nexp": int(tree["nexp"])})
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16, as jax exports it
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)  # a copy: never aliases the input
+
+
+def lm_params_from_jax(tree: Mapping[str, object],
+                       device: torch.device | str = "cpu") -> dict:
+    """A reference LM param tree (nested dicts of arrays, layers stacked on
+    axis 0) -> the port's params: the same key names, shapes and dtypes."""
+    return {k: lm_params_from_jax(v, device) if isinstance(v, Mapping)
+            else _tensor_from_numpy(v, device) for k, v in tree.items()}

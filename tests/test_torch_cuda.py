@@ -11,6 +11,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 import pytest
 import torch
 
+from repro_torch.kernels.attention import ops as aops
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.distance import fused as fops
 from repro_torch.kernels.distance import ops as dops, ref as dref
 from repro_torch.kernels.neighbor import ops as nops, ref as nref
@@ -107,3 +109,49 @@ def test_cuda_wrappers_refuse_bad_inputs(gen):
         fops.fused_masked_assign_update(
             x.double(), x[:3].double().contiguous(),
             torch.ones(64, dtype=torch.bool, device="cuda"))
+
+
+# flash attention: the reference's tolerances (tests/test_parallel.py)
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,d", [
+    (1, 1, 1, 1, 1, 8),          # one query, one key
+    (1, 64, 64, 2, 2, 32),       # the reference's flash-test shapes
+    (2, 100, 100, 4, 2, 16),
+    (1, 33, 33, 2, 1, 8),
+    (1, 128, 128, 8, 2, 64),
+    (2, 300, 300, 8, 8, 64),     # narrow head, ragged tiles
+    (1, 517, 517, 12, 12, 96),   # d = 96: three 32-dim chunks
+    (2, 70, 70, 4, 4, 12),       # d not a multiple of 4 (phi3 smoke)
+    (1, 40, 90, 4, 2, 128),      # more keys than queries
+    (1, 90, 40, 4, 2, 128),      # more queries than keys
+    (1, 48, 48, 2, 1, 256),      # the widest head (dynamic shared memory)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(gen, b, s, sk, h, kv, d, dtype, causal):
+    q = torch.randn(b, s, h, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(b, sk, kv, d, generator=gen).to("cuda", dtype)
+    v = torch.randn(b, sk, kv, d, generator=gen).to("cuda", dtype)
+    before = aops.flash_attention.launches
+    out = aops.flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert aops.flash_attention.launches == before + 1
+    assert out.shape == (b, s, h, d) and out.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(aops.flash_attention(q, k, v, causal=causal), out)
+
+
+def test_flash_kernel_reads_strided_views(gen):
+    qkv = torch.randn(2, 200, 12, 64, generator=gen).cuda()  # (B, S, 3H, D)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
+    out = aops.flash_attention(q, k, v)
+    ref = aops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="unit stride"):
+        aops.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3),
+                             k, v)

@@ -1,6 +1,6 @@
-"""The port stands alone: a CPU mining job and a CPU service round trip in
-a fresh interpreter load neither jax nor anything of the reference
-package."""
+"""The port stands alone: a CPU mining job, a CPU service round trip and a
+CPU LM serving batch in a fresh interpreter load neither jax nor anything
+of the reference package."""
 
 import os
 import subprocess
@@ -28,6 +28,10 @@ with repro_torch.service.MiningClient(tempfile.mkdtemp(), device="cpu",
                                 results=results)
 assert failures == {"suspended": 0, "dropped": 0, "rejected": 0}, failures
 assert [r["algo"] for r in results] == ["dbscan", "kmeans"], results
+from repro_torch.launch import serve
+out = serve.serve_batch(arch="olmo-1b", smoke=True, batch=2, prompt_len=6,
+                        gen=3, device="cpu")
+assert tuple(out["generated"].shape) == (2, 3), out
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
