@@ -20,11 +20,20 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    eps = 2 with a ~5% frontier (exact; a differing degree must be explained
    by a pair within 1e-5 * eps^2 of the boundary in float64); flash
    attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
-   bf16, causal) and three more (odd length with GQA, full attention at
-   D 96, a narrow head), within 2e-4 (fp32) / 3e-2 (bf16) of the plain
-   version, two launches bitwise equal.  Times kernel, plain version and a
-   PyTorch yardstick (``library_ms``, never called by the port; SDPA for
-   attention).
+   bf16, causal), GLM4-9B's (B 1, S 4096, 32 heads on 2 KV heads) and
+   MiniCPM-2B's width (B 2, S 2048, 36 heads of 64) and three more (odd
+   length with GQA, full attention at D 96, a narrow head), within 2e-4
+   (fp32) / 3e-2 (bf16) of the plain version elementwise and within
+   1e-4 / 1e-2 of its norm in every 128-row query block of a head (against
+   the plain version in fp32), two launches bitwise equal;
+   every bf16 row must take the tensor-core route ("tc",
+   ``csrc/flash_sm90.cu``) and every fp32 row the CUDA-core one ("simt",
+   ``csrc/attention.cu``).  Times kernel, plain version and a PyTorch
+   yardstick (``library_ms``, never called by the port; SDPA for
+   attention), and the "simt" kernel on the OLMo-1B row's bf16 inputs
+   beside the "tc" one, held to the same two bounds.  The build step logs
+   the ``HGMMA`` and ``UTMALDG`` instructions in the tensor-core library's
+   SASS and fails without ``HGMMA``.
 3. Slice 1's path, the one-job app, at full width through
    ``run_mining_job``: K-Means on 1,048,576 points of 32 features with 64
    clusters, and DBSCAN on 65,536 points of 4 features, each against its
@@ -44,10 +53,11 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
 3c. Slice 3's path, LM serving, through ``serve.serve_batch`` at OLMo-1B's
    full width (16 layers, d_model 2048, vocab 50304, synthetic bf16
    weights): batch 4, prompt 4096, 32 generated tokens.  The flash kernel
-   must launch once per layer of the prefill (16) and never in decode, and
-   every logit must be finite.  Then, in fp32 at the same widths (batch 2,
-   prompt 1024, 8 tokens), the kernel route against the same run with the
-   layers' attention patched to the plain version: prefill logits within
+   must launch once per layer of the prefill (16), every launch on the
+   "tc" route, and never in decode, and every logit must be finite.  Then,
+   in fp32 at the same widths (batch 2, prompt 1024, 8 tokens), the kernel
+   route ("simt", as fp32 goes) against the same run with the layers'
+   attention patched to the plain version: prefill logits within
    1e-4 of the largest logit, greedy tokens equal.  The bf16 run's distance
    from the plain route is printed, not gated.
 4. Checks small runs against the sequential DBSCAN oracle, that a
@@ -104,12 +114,20 @@ PREEMPT_ITERS = 1000
 # first is OLMo-1B's prefill at the serving shape; the row's timing is there.
 ATTN_SHAPES = [
     ("OLMo-1B prefill", 4, 4096, 16, 16, 128, "bfloat16", True),
+    ("GLM4-9B prefill", 1, 4096, 32, 2, 128, "bfloat16", True),
+    ("MiniCPM-2B width", 2, 2048, 36, 36, 64, "bfloat16", True),
     ("odd length, GQA", 2, 1000, 32, 2, 128, "float32", True),
     ("full attention", 1, 517, 12, 12, 96, "float32", False),
     ("narrow head", 2, 300, 8, 8, 64, "bfloat16", True),
 ]
 # the reference's own flash-test tolerances (tests/test_parallel.py)
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# and per 128-row query block of one (b, h), the relative Frobenius error
+# against the plain version in fp32 (ref.block_error): what the elementwise
+# bound lets through at long rows, where outputs are ~0.03
+ATTN_BLOCK_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# which kernel each dtype's rows must take (kernels/attention/ops._route)
+ATTN_ROUTE = {"float32": "simt", "bfloat16": "tc"}
 # The LM serving phase: OLMo-1B at full width, and the fp32 check's shape.
 SERVE = dict(arch="olmo-1b", batch=4, prompt_len=4096, gen=32)
 SERVE_CHECK = dict(batch=2, prompt_len=1024, gen=8)
@@ -172,15 +190,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build(build_mod) -> None:
+def build(build_mod) -> dict:
+    """Build every kernel; log registers and the tensor-core library's
+    SASS instruction counts (returned)."""
     t0 = time.time()
     build_mod.build_all()
     log(f"build: {time.time() - t0:.2f} s")
-    for name in ("attention", "distance", "fused", "neighbor"):
-        regs = sorted({ln.split(":", 1)[1].strip()
+    for name in ("attention", "distance", "flash_sm90", "fused", "neighbor"):
+        regs = sorted({ln.split(":", 1)[-1].strip()
                        for ln in build_mod.build_log(name).splitlines()
-                       if "registers" in ln})
+                       if "registers" in ln or "spill" in ln})
         log(f"ptxas {name}: {regs}")
+    out = subprocess.run(
+        [build_mod.cuda_tool("cuobjdump"), "-sass",
+         str(build_mod.library_path("flash_sm90"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    sass = {op: sum(ln.count(op) for ln in out.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+    log(f"SASS flash_sm90: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG "
+        f"instructions")
+    check(sass["HGMMA"] > 0, "flash_sm90: no HGMMA instruction in its SASS")
+    return sass
 
 
 def kernel_assign(torch, mods) -> dict:
@@ -392,9 +422,26 @@ def attention_work(b, s, h, kv, d, itemsize, causal) -> tuple:
     return nbytes, 4.0 * d * pairs
 
 
-def kernel_attention(torch, mods) -> dict:
+def close_to_plain(torch, aref, out, ref, ref32, dt: str,
+                   what: str) -> tuple:
+    """Hold an attention output against the plain version: elementwise
+    against ``ref`` (the plain version in the inputs' dtype) and per query
+    block against ``ref32`` (in fp32).  Returns (max |err|, block error)."""
+    err = float((out.float() - ref.float()).abs().max())
+    tol = ATTN_TOL[dt]
+    check(bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)),
+          f"{what}: differs from the plain version by up to {err}")
+    blk = aref.block_error(out, ref32)
+    check(blk <= ATTN_BLOCK_TOL[dt],
+          f"{what}: a 128-row query block differs from the plain version "
+          f"by {blk} of its norm (limit {ATTN_BLOCK_TOL[dt]})")
+    return err, blk
+
+
+def kernel_attention(torch, mods, sass: dict) -> dict:
     aops, aref = mods["aops"], mods["aref"]
     F = torch.nn.functional
+    by_route = aops.flash_attention.launches_by_route
     g = torch.Generator(device=DEV).manual_seed(SEED + 4)
     row = None
     for what, b, s, h, kv, d, dt, causal in ATTN_SHAPES:
@@ -402,43 +449,68 @@ def kernel_attention(torch, mods) -> dict:
         q = torch.randn(b, s, h, d, generator=g, device=DEV).to(dtype)
         k = torch.randn(b, s, kv, d, generator=g, device=DEV).to(dtype)
         v = torch.randn(b, s, kv, d, generator=g, device=DEV).to(dtype)
+        route = ATTN_ROUTE[dt]
+        label = (f"{what} (B={b} S={s} H={h} KV={kv} D={d} {dt} "
+                 f"causal={causal})")
+        before = by_route[route]
         out = aops.flash_attention(q, k, v, causal=causal)
         again = aops.flash_attention(q, k, v, causal=causal)
-        ref = aref.attention_ref(q, k, v, causal=causal)
+        check(by_route[route] == before + 2,
+              f"flash attention {label}: did not take the {route!r} route "
+              f"({by_route})")
+        ref32 = aref.attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        ref = ref32.to(dtype)   # what attention_ref(q, k, v) gives
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = ATTN_TOL[dt]
-        label = f"{what} (B={b} S={s} H={h} KV={kv} D={d} {dt} causal={causal})"
-        check(bool(torch.allclose(out.float(), ref.float(), rtol=tol,
-                                  atol=tol)),
-              f"flash attention {label}: differs from the plain version by "
-              f"up to {err}")
+        err, blk = close_to_plain(torch, aref, out, ref, ref32, dt,
+                                  f"flash attention {label}")
         check(bool(torch.equal(out, again)),
               f"flash attention {label}: two launches differ")
-        del ref, again
+        del again
         ms = time_ms(torch, lambda: aops.flash_attention(q, k, v,
                                                          causal=causal),
                      reps=10)
         nbytes, ops = attention_work(b, s, h, kv, d, q.element_size(), causal)
-        b32, _ = bound(nbytes, ops, PEAK_FP32)
-        log(f"flash attention {label}: max |err| {err!r} (tol {tol}), two "
-            f"launches bitwise equal, {ms:.3f} ms, {ops:.4g} operations, "
-            f"fp32 bound {b32:.4f} ms")
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        bnd, by = bound(nbytes, ops, peak)
+        log(f"flash attention {label}: route {route}, max |err| {err!r} "
+            f"(tol {ATTN_TOL[dt]}), block error {blk!r} (tol "
+            f"{ATTN_BLOCK_TOL[dt]}), two launches bitwise equal, {ms:.4f} ms, "
+            f"{ops:.4g} operations, {ops / ms / 1e9:.1f} TFLOP/s, bound "
+            f"{bnd:.4f} ms ({by}, {dt})")
         if row is not None:
+            del ref, ref32
             continue
+        # the serving shape: the CUDA-core route on the same bf16 inputs
+        # (the kernel the tensor-core one replaced on this path, and still
+        # the bf16 route at other widths), checked and timed; the plain
+        # version and SDPA
+        simt_out = aops._launch(q, k, v, causal, "simt")
+        torch.cuda.synchronize()
+        simt_err, simt_blk = close_to_plain(
+            torch, aref, simt_out, ref, ref32, dt,
+            f"flash attention {label} on \"simt\"")
+        log(f"flash attention {label}: route simt on the same inputs, max "
+            f"|err| {simt_err!r}, block error {simt_blk!r}")
+        del simt_out, ref, ref32
+        simt = time_ms(torch, lambda: aops._launch(q, k, v, causal, "simt"),
+                       reps=3)
         plain = time_ms(torch, lambda: aref.attention_ref(q, k, v,
                                                           causal=causal),
                         reps=2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), reps=10)
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-        bnd, by = bound(nbytes, ops, peak)
+        b32, _ = bound(nbytes, ops, PEAK_FP32)
+        log(f"flash attention {label}: tc {ms!r} ms, simt {simt!r} ms, "
+            f"plain {plain!r} ms, SDPA {lib!r} ms")
         row = dict(name="flash_attention", route="cuda",
-                   source="src/repro_torch/csrc/attention.cu",
+                   source="src/repro_torch/csrc/flash_sm90.cu",
                    replaces="src/repro/kernels/attention/attention.py:42",
                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                    bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+                   block_error=blk, simt_ms=simt, simt_max_abs_err=simt_err,
+                   simt_block_error=simt_blk, sass=sass,
                    shape=f"B={b} S={s} H={h} KV={kv} D={d} {dt} "
                          f"causal={causal}",
                    library_call="torch.nn.functional."
@@ -478,9 +550,13 @@ def lm_serving_path(torch, mods, counters) -> dict:
     out = serve.serve_batch(smoke=False, device=DEV, seed=SEED, **SERVE)
     wall = time.time() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_route = dict(counters["flash_attention"].launches_by_route)
     check(launches["flash_attention"] == cfg.n_layers,
           f"serve: {launches['flash_attention']} flash launches for "
           f"{cfg.n_layers} layers (one per prefill layer, none in decode)")
+    check(by_route == {"tc": cfg.n_layers, "simt": 0},
+          f"serve: flash launches by route {by_route}; every prefill layer "
+          f"must take the tensor-core route")
     check(all(n == 0 for name, n in launches.items()
               if name != "flash_attention"),
           f"serve: a mining kernel launched: {launches}")
@@ -498,7 +574,8 @@ def lm_serving_path(torch, mods, counters) -> dict:
         f"tokens_per_s {out['tokens_per_s']!r}, wall with weight init "
         f"{wall:.3f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
-        f"launches {launches['flash_attention']}, all logits finite")
+        f"launches {launches['flash_attention']} by route {by_route}, all "
+        f"logits finite")
     del out
     profile_serving(torch, mods, cfg)
 
@@ -511,8 +588,10 @@ def lm_serving_path(torch, mods, counters) -> dict:
                             generator=g, device=DEV)
     reset(counters)
     a = serve.generate(params, prompts, cfg32, gen=c["gen"])
-    check(counters["flash_attention"].launches == cfg.n_layers,
-          "fp32 check: the kernel route did not launch once per layer")
+    check(counters["flash_attention"].launches_by_route["simt"]
+          == counters["flash_attention"].launches == cfg.n_layers,
+          "fp32 check: the kernel route did not launch the CUDA-core kernel "
+          "once per layer")
     with plain_attention(mods):
         reset(counters)
         b = serve.generate(params, prompts, cfg32, gen=c["gen"])
@@ -618,6 +697,10 @@ def workdir(mods, prefix: str) -> str:
 def reset(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+        by_route = getattr(fn, "launches_by_route", None)
+        if by_route is not None:
+            for route in by_route:
+                by_route[route] = 0
 
 
 def main_path(torch, mods, counters) -> dict:
@@ -984,10 +1067,10 @@ def main() -> int:
                                      ignore_cleanup_errors=True) as tmp:
         mods["tmp"] = tmp
         try:
-            build(_build)
+            sass = build(_build)
             rows = [kernel_assign(torch, mods), kernel_fused(torch, mods),
                     *kernel_neighbor(torch, mods),
-                    kernel_attention(torch, mods)]
+                    kernel_attention(torch, mods, sass)]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
             log(f"one-job path: {time.time() - t_path:.1f} s, launches "
@@ -1030,15 +1113,19 @@ def main() -> int:
                         "kernel_only_ms": row.get("kernel_only_ms"),
                         "launch_shape": row.get("launch_shape"),
                         "bound_fp32_ms": row.get("bound_fp32_ms"),
+                        "block_error": row.get("block_error"),
+                        "simt_ms": row.get("simt_ms"),
+                        "simt_max_abs_err": row.get("simt_max_abs_err"),
+                        "simt_block_error": row.get("simt_block_error"),
+                        "sass": row.get("sass"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
-    # the smoke runs on one card, whatever the machine holds
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -38,12 +38,14 @@ class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a source."""
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelBuildError(f"{name} not found (set CUDA_HOME or put it on "
+                           f"PATH)")
 
 
 def _target(name: str) -> Tuple[Path, Path]:
@@ -66,7 +68,8 @@ def _start(name: str):
         return None, src, lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, src, lib
@@ -100,9 +103,14 @@ def build_all() -> List[Path]:
     return [lib for _n, _p, _s, lib in started]
 
 
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
+    return _target(name)[1]
+
+
 def build_log(name: str) -> str:
     """What ``nvcc``/``ptxas`` printed for ``name`` (registers, spills)."""
-    log = _target(name)[1].with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

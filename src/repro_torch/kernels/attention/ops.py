@@ -1,14 +1,25 @@
-"""Public wrapper around the flash-attention kernel (``csrc/attention.cu``).
+"""Public wrapper around the flash-attention kernels.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel on the current stream or raises — there is no fallback.
+a kernel on the current stream or raises — there is no fallback.  Which
+kernel is decided before the launch, from dtype, shape and strides alone
+(:func:`_route`):
+
+- ``"tc"``: ``csrc/flash_sm90.cu``, Hopper's tensor cores (``wgmma`` on
+  bf16, TMA-staged tiles), for bf16 with D 64 or 128 whose q, k and v meet
+  TMA's alignment (16-byte base, strides multiples of 8 elements, unit
+  stride along D);
+- ``"simt"``: ``csrc/attention.cu``, fp32 arithmetic on the CUDA cores,
+  for everything else (fp32, other head widths, unaligned views).
+
 ``flash_attention.launches`` counts kernel launches (plain runs do not
-count), so a run can show that its main path went through the kernel.
+count) and ``flash_attention.launches_by_route`` splits them by route, so a
+run can show which kernel its main path went through.
 
 Unlike the reference's wrapper (``repro/kernels/attention/ops.py``), which
 repeats the KV heads, transposes to (B*H, S, D) and pads S to the block
-size, the kernel reads q, k and v in their (B, S, heads, D) layout through
-strides and maps query head h to KV head h // (H / KV) itself: no copy.
+size, both kernels read q, k and v in their (B, S, heads, D) layout through
+strides and map query head h to KV head h // (H / KV) themselves: no copy.
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ __all__ = ["flash_attention", "attention_ref", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core kernel's head widths
+_TC_HEAD_DIMS = (64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -34,8 +47,49 @@ _SIGNATURES = {
 }
 
 
+_TC_SIGNATURES = {
+    "flash_sm90_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        *[_L] * 12, ctypes.c_float, _I, _P], ctypes.c_int),
+}
+
+
 def _lib() -> ctypes.CDLL:
     return _build.library("attention", _SIGNATURES)
+
+
+def _tc_lib() -> ctypes.CDLL:
+    return _build.library("flash_sm90", _TC_SIGNATURES)
+
+
+def _tma_strides(t: torch.Tensor) -> list:
+    """Element strides of dims 0-2 of a (B, S, heads, D) tensor as its TMA
+    map takes them: a dim of size 1 has no meaningful stride, so it gets
+    the one it would have if it were contiguous over the dims inside it."""
+    strides = list(t.stride()[:3])
+    inner = t.shape[3] * t.stride(3)
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            strides[i] = inner
+        inner = strides[i] * t.shape[i]
+    return strides
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"tc"`` or ``"simt"``: which kernel takes these (valid) inputs.
+
+    Reads dtype, shape, strides and base addresses only, so it runs on any
+    device (the CPU tests call it on CPU tensors).
+    """
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        return "simt"
+    if q.shape[3] not in _TC_HEAD_DIMS:
+        return "simt"
+    for t in (q, k, v):
+        if t.stride(3) != 1 or t.data_ptr() % 16:
+            return "simt"
+        if any(s <= 0 or s % 8 for s in _tma_strides(t)):
+            return "simt"
+    return "tc"
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -62,29 +116,39 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+            causal: bool, route: str) -> torch.Tensor:
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs unit stride along D, got "
                              f"strides {t.stride()}")
-    if b * h > 65535 or max(sq, sk) >= 2**31:
+    if (route == "simt" and b * h > 65535) or max(sq, sk) >= 2**31:
         raise ValueError(f"shape too large for one launch: B*H={b * h}, "
                          f"Sq={sq}, Sk={sk}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0 or b * h == 0:
         return out
-    lib = _lib()
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, kv, sq, sk, d, *strides,
-            1.0 / math.sqrt(d), int(causal), stream)
-    _build.check(lib, err, "flash_attention")
+        if route == "tc":
+            lib = _tc_lib()
+            strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+            err = lib.flash_sm90_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, h, kv, sq, sk, d, *strides, *out.stride()[:3], scale,
+                int(causal), stream)
+        else:
+            lib = _lib()
+            strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, h, kv, sq, sk, d, *strides, scale,
+                int(causal), stream)
+    _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
@@ -93,7 +157,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention forward: softmax(q k^T / sqrt(D)) v per head.
 
     Args:
-      q: (B, Sq, H, D) float32 or bfloat16 (computed in float32).
+      q: (B, Sq, H, D) float32 or bfloat16 (scores, softmax and the sum
+        in float32; the tensor-core route rounds the probabilities to
+        bfloat16 before multiplying them into v).
       k, v: (B, Sk, KV, D), same dtype and device; H % KV == 0 and query
         head h reads KV head h // (H / KV).
       causal: mask the keys after each query (key position > query
@@ -103,10 +169,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check_inputs(q, k, v)
     if q.is_cuda:
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, _route(q, k, v))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     raise ValueError(f"unsupported device {q.device}")
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"tc": 0, "simt": 0}

@@ -13,7 +13,7 @@ import torch
 from repro.kernels.attention.ops import flash_attention as jax_flash
 from repro.kernels.attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.attention import ops as tops
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, block_error
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # the reference's flash-kernel shapes (tests/test_parallel.py)
@@ -102,3 +102,97 @@ def test_flash_attention_rejects_other_dtypes():
     f = torch.zeros((1, 4, 2, 8))
     with pytest.raises(TypeError):
         tops.flash_attention(f, f.bfloat16(), f.bfloat16())
+
+
+# Which kernel takes a CUDA call (kernels/attention/ops.py:_route): the
+# rule reads dtype, shape, strides and base addresses only, so it is tested
+# here on CPU tensors.  "tc" is the tensor-core kernel (csrc/flash_sm90.cu),
+# "simt" the CUDA-core one (csrc/attention.cu).
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 8, "simt"),      # the smoke configs' narrow heads
+    (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 96, "simt"),     # 192-byte rows: no 128-byte boxes
+    (torch.bfloat16, 256, "simt"),
+    (torch.float32, 64, "simt"),      # fp32 keeps fp32 arithmetic
+    (torch.float32, 128, "simt"),
+])
+def test_route_by_dtype_and_head_width(dtype, d, route):
+    q = torch.zeros((2, 10, 4, d), dtype=dtype)
+    k = torch.zeros((2, 10, 2, d), dtype=dtype)
+    assert tops._route(q, k, k.clone()) == route
+
+
+def _view(kind: str) -> torch.Tensor:
+    """A bf16 (2, 10, 4, 64) q laid out as ``kind`` says."""
+    bf = torch.bfloat16
+    if kind == "contiguous":
+        return torch.zeros((2, 10, 4, 64), dtype=bf)
+    if kind == "qkv slice":               # (B, S, 3H, D) cut along heads
+        return torch.zeros((2, 10, 12, 64), dtype=bf)[:, :, 4:8]
+    if kind == "heads outside sequence":  # (B, H, S, D) storage
+        return torch.zeros((2, 4, 10, 64), dtype=bf).transpose(1, 2)
+    if kind == "D not unit stride":
+        return torch.zeros((2, 64, 4, 10), dtype=bf).transpose(1, 3)
+    if kind == "base 2 bytes off 16":
+        return torch.zeros(1 + 2 * 10 * 4 * 64, dtype=bf)[1:].view(2, 10, 4,
+                                                                  64)
+    if kind == "row stride not a multiple of 8":
+        return torch.zeros((2, 10, 4 * 64 + 4), dtype=bf)[:, :, :256] \
+            .unflatten(2, (4, 64))
+    if kind == "size-1 dims with odd strides":   # B = H = 1: never stepped
+        return torch.zeros(4096, dtype=bf).as_strided((1, 10, 1, 64),
+                                                      (3, 64, 5, 1))
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,route", [
+    ("contiguous", "tc"),
+    ("qkv slice", "tc"),
+    ("heads outside sequence", "tc"),
+    ("D not unit stride", "simt"),
+    ("base 2 bytes off 16", "simt"),
+    ("row stride not a multiple of 8", "simt"),
+    ("size-1 dims with odd strides", "tc"),
+])
+@pytest.mark.parametrize("which", ["q", "v"])
+def test_route_by_strides_and_alignment(kind, route, which):
+    x = _view(kind)
+    other = torch.zeros(x.shape, dtype=x.dtype)
+    q, v = (x, other) if which == "q" else (other, x)
+    assert tops._route(q, other.clone(), v) == route
+
+
+def test_tma_strides_fill_in_size_one_dims():
+    x = _view("size-1 dims with odd strides")
+    assert tops._tma_strides(x) == [64 * 10, 64, 64]
+    assert tops._tma_strides(_view("qkv slice")) == [10 * 12 * 64, 12 * 64,
+                                                     64]
+
+
+# ref.block_error, the per-query-block check the card tests and the smoke
+# add to the elementwise bf16 tolerance: at long rows outputs are ~0.03, so
+# 3e-2 elementwise lets through a fault confined to a few rows.
+
+
+@pytest.mark.parametrize("s,block_rows", [(1000, slice(896, 1000)),
+                                          (4096, slice(3968, 4096))])
+def test_block_error_catches_what_the_elementwise_bound_passes(s,
+                                                               block_rows):
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, s, 2, 1, 64, seed=4))
+    ref32 = attention_ref(q.float(), k.float(), v.float())
+    ref = ref32.bfloat16()
+    # rounding to bf16 alone: about 2e-3 of each block's norm
+    assert 0 < block_error(ref, ref32) < 1e-2
+    # a 5% fault in the last query block of one head
+    bad = ref32.clone()
+    bad[:, block_rows, 1] *= 1.05
+    tol = TOL["bfloat16"]
+    assert torch.allclose(bad, ref32, rtol=tol, atol=tol)
+    assert block_error(bad, ref32) > 1e-2

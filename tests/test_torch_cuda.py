@@ -5,6 +5,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -q
 
+(``-k flash`` for the attention kernels alone.)
+
 (``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
 """
 
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.attention import ops as aops
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, block_error
 from repro_torch.kernels.distance import fused as fops
 from repro_torch.kernels.distance import ops as dops, ref as dref
 from repro_torch.kernels.neighbor import ops as nops, ref as nref
@@ -155,3 +157,91 @@ def test_flash_kernel_reads_strided_views(gen):
     with pytest.raises(ValueError, match="unit stride"):
         aops.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3),
                              k, v)
+
+
+# The tensor-core route (csrc/flash_sm90.cu): bf16, D 64 or 128, TMA-aligned.
+# It rounds the probabilities to bf16 before P.V; the bf16 tolerance is the
+# reference's own, as above.  At long rows outputs are ~0.03, below that
+# tolerance, so each 128-row query block of a head is also held to 1e-2 of
+# its norm against the plain version in fp32 (ref.block_error).
+ATTN_BLOCK_TOL_BF16 = 1e-2
+
+
+def _bf16(gen, *shape):
+    return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+
+def _check_tc(q, k, v, causal):
+    assert aops._route(q, k, v) == "tc"
+    before = dict(aops.flash_attention.launches_by_route)
+    out = aops.flash_attention(q, k, v, causal=causal)
+    ref32 = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    ref = ref32.to(torch.bfloat16)    # what attention_ref(q, k, v) gives
+    torch.cuda.synchronize()
+    after = aops.flash_attention.launches_by_route
+    assert after["tc"] == before["tc"] + 1
+    assert after["simt"] == before["simt"]
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    tol = ATTN_TOL[torch.bfloat16]
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol), \
+        float((out.float() - ref.float()).abs().max())
+    blk = block_error(out, ref32)
+    assert blk <= ATTN_BLOCK_TOL_BF16, f"block error {blk}"
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 1000, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_route_matches_plain(gen, s, d, causal):
+    b, h, kv = (1, 2, 2) if s == 4096 else (2, 4, 2)
+    q = _bf16(gen, b, s, h, d)
+    k, v = _bf16(gen, b, s, kv, d), _bf16(gen, b, s, kv, d)
+    out = _check_tc(q, k, v, causal)
+    # no atomics, sums in a fixed order: a second launch gives the same bits
+    assert torch.equal(aops.flash_attention(q, k, v, causal=causal), out)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_route_gqa_32_on_2(gen, causal):
+    q = _bf16(gen, 1, 600, 32, 128)
+    k, v = _bf16(gen, 1, 600, 2, 128), _bf16(gen, 1, 600, 2, 128)
+    _check_tc(q, k, v, causal)
+
+
+@pytest.mark.parametrize("sq,sk", [(300, 130), (130, 300), (1, 257),
+                                   (257, 1)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_route_unequal_lengths(gen, sq, sk, d, causal):
+    q = _bf16(gen, 2, sq, 4, d)
+    k, v = _bf16(gen, 2, sk, 2, d), _bf16(gen, 2, sk, 2, d)
+    _check_tc(q, k, v, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tc_route_reads_strided_views(gen, d):
+    qkv = _bf16(gen, 2, 333, 12, d)               # (B, S, 3H, D)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
+    out = _check_tc(q, k, v, True)
+    ref = aops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(out, ref)
+    # heads outside sequence: (B, H, S, D) storage seen as (B, S, H, D)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert torch.equal(_check_tc(qt, kt, vt, True), ref)
+
+
+def test_flash_tc_route_leaves_unaligned_views_to_simt(gen):
+    flat = _bf16(gen, 1 + 2 * 100 * 4 * 64)
+    q = flat[1:].view(2, 100, 4, 64)              # base 2 bytes off 16
+    k, v = _bf16(gen, 2, 100, 4, 64), _bf16(gen, 2, 100, 4, 64)
+    assert aops._route(q, k, v) == "simt"
+    before = dict(aops.flash_attention.launches_by_route)
+    out = aops.flash_attention(q, k, v)
+    assert aops.flash_attention.launches_by_route["simt"] == \
+        before["simt"] + 1
+    ref = aops.flash_attention(q.clone(), k, v)   # aligned copy: "tc"
+    assert aops.flash_attention.launches_by_route["tc"] == before["tc"] + 1
+    tol = ATTN_TOL[torch.bfloat16]
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
