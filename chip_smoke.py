@@ -32,8 +32,16 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    yardstick (``library_ms``, never called by the port; SDPA for
    attention), and the "simt" kernel on the OLMo-1B row's bf16 inputs
    beside the "tc" one, held to the same two bounds.  The build step logs
-   the ``HGMMA`` and ``UTMALDG`` instructions in the tensor-core library's
-   SASS and fails without ``HGMMA``.
+   the ``HGMMA``, ``HMMA`` and ``UTMALDG`` instructions in the SASS of the
+   flash, assignment and fused libraries and fails without tensor-core
+   instructions (``HGMMA`` for flash).  The assignment and fused kernels are
+   also held to their plain versions at near-ties (points at the midpoints
+   of centroid pairs and 1 ulp either side, duplicate centroids, points on
+   centroids, an inf row and a NaN row) at d = 32 and d = 5: indices and
+   scores bit for bit; at d = 96, 128, 192 and 1024 (either side of the
+   switch to the wide search at d > 96), bit for bit, each timed with both
+   search forms where they fit; and the exact rechecks per point (mean and
+   most) are logged at every shape.
 3. Slice 1's path, the one-job app, at full width through
    ``run_mining_job``: K-Means on 1,048,576 points of 32 features with 64
    clusters, and DBSCAN on 65,536 points of 4 features, each against its
@@ -49,7 +57,10 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    ``cuda-kernel``; DBSCAN labels equal the plain ``dbscan.fit`` on the
    card; K-Means final inertia matches the same requests on ``torch-ref``
    within 1e-4 relative, and both lanes' cached steps give the same step-1
-   assignment on a padded item.
+   assignment on a padded item.  Then one K-Means batch of new requests
+   runs on a service of its own under ``torch.profiler``: its device time,
+   the fused step's share of it, and the lane's exec_s - host_s for the
+   batch are logged.
 3c. Slice 3's path, LM serving, through ``serve.serve_batch`` at OLMo-1B's
    full width (16 layers, d_model 2048, vocab 50304, synthetic bf16
    weights): batch 4, prompt 4096, 32 generated tokens.  The flash kernel
@@ -88,6 +99,7 @@ SRC = ROOT / "src"
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12      # FLOP/s
 PEAK_BF16 = 989e12     # FLOP/s, dense tensor cores
+PEAK_TF32 = 495e12     # FLOP/s, dense tensor cores
 PEAK_BYTES = 3.35e12   # byte/s
 
 ASSIGN_SHAPE = dict(features=32, clusters=64, size=16384)   # n = 2^20
@@ -95,6 +107,10 @@ DBSCAN_SHAPE = dict(features=4, clusters=8, size=8192)      # n = 65536
 FRONTIER_FRACTION = 0.05
 FUSED_MASKED_FRACTION = 0.25
 FUSED_LARGE_K = dict(n=65536, k=1024)
+# Both K-Means kernels either side of the plan's choice of search form
+# (d > 96 is wide), and at a common embedding width: (n, k, d).
+SEARCH_WIDTHS = [(65536, 64, 96), (65536, 64, 128), (65536, 64, 192),
+                 (16384, 64, 1024)]
 SEED = 0
 # Where every phase runs: the card.
 DEV = "cuda"
@@ -190,30 +206,122 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Tensor-core (wgmma: HGMMA, mma.sync: HMMA) and TMA instructions counted
+# in each library's SASS, and those of which the build needs at least one.
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+SASS_NEEDS = {"flash_sm90": ("HGMMA",), "distance": ("HGMMA", "HMMA"),
+              "fused": ("HGMMA", "HMMA")}
+
+
 def build(build_mod) -> dict:
-    """Build every kernel; log registers and the tensor-core library's
-    SASS instruction counts (returned)."""
+    """Build every kernel; log registers and spills, and the tensor-core
+    and TMA instruction counts of the libraries that use them (returned)."""
     t0 = time.time()
     build_mod.build_all()
     log(f"build: {time.time() - t0:.2f} s")
     for name in ("attention", "distance", "flash_sm90", "fused", "neighbor"):
         regs = sorted({ln.split(":", 1)[-1].strip()
                        for ln in build_mod.build_log(name).splitlines()
-                       if "registers" in ln or "spill" in ln})
+                       if "Used" in ln or "spill" in ln})
         log(f"ptxas {name}: {regs}")
-    out = subprocess.run(
-        [build_mod.cuda_tool("cuobjdump"), "-sass",
-         str(build_mod.library_path("flash_sm90"))],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    sass = {op: sum(ln.count(op) for ln in out.splitlines())
-            for op in ("HGMMA", "UTMALDG")}
-    log(f"SASS flash_sm90: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG "
-        f"instructions")
-    check(sass["HGMMA"] > 0, "flash_sm90: no HGMMA instruction in its SASS")
+    sass = {}
+    for name, needs in SASS_NEEDS.items():
+        out = subprocess.run(
+            [build_mod.cuda_tool("cuobjdump"), "-sass",
+             str(build_mod.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        sass[name] = {op: sum(ln.count(op) for ln in out.splitlines())
+                      for op in SASS_OPS}
+        log(f"SASS {name}: " + ", ".join(f"{v} {op}" for op, v in
+                                         sass[name].items()) + " instructions")
+        check(sum(sass[name][op] for op in needs) > 0,
+              f"{name}: no {' or '.join(needs)} instruction in its SASS")
     return sass
 
 
-def kernel_assign(torch, mods) -> dict:
+def same_bits(torch, a, b) -> bool:
+    """Equal bits, NaN matching NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32)))
+
+
+def near_ties(torch, d: int, seed: int):
+    """Points at the midpoints of centroid pairs and 1 ulp either side,
+    duplicate centroids, points equal to a centroid, random points, a row
+    holding inf and one holding NaN; and the centroids."""
+    g = torch.Generator().manual_seed(seed)
+    c = torch.randn(56, d, generator=g) * 3
+    c = torch.cat([c, c[:8]])
+    mid = (c[:28] + c[28:56]) / 2
+    inf = torch.full_like(mid, float("inf"))
+    bad = torch.randn(2, d, generator=g)
+    bad[0, d // 2] = float("inf")
+    bad[1, 0] = float("nan")
+    x = torch.cat([mid, torch.nextafter(mid, inf), torch.nextafter(mid, -inf),
+                   c, torch.randn(4000, d, generator=g) * 3, bad])
+    return x.contiguous().to(DEV), c.contiguous().to(DEV)
+
+
+def recheck_line(dops, fn, what, n) -> dict:
+    total, most = dops.rechecks(fn)
+    log(f"rechecks {what}: {total / n!r} per point (mean), {most} at most")
+    return dict(mean=total / n, max=most)
+
+
+def wide_rows(torch, mods) -> None:
+    """Both K-Means kernels on each side of the plan's choice between the
+    staged search (whole rows) and the wide one (d > ops.WIDE_D, the
+    products streamed box by box), at SEARCH_WIDTHS: the assignment's
+    indices and distances and the fused step's indices and counts equal to
+    the plain version's bits, the fused sums within 1e-4 of their scale;
+    each timed with the plan's search and with the other one where it fits
+    (the staged search cannot hold rows of 1024 features)."""
+    dops, fops, dref = mods["dops"], mods["fops"], mods["dref"]
+    for n, k, d in SEARCH_WIDTHS:
+        g = torch.Generator().manual_seed(SEED + d)
+        c = torch.randn(k, d, generator=g) * 4
+        x = c[torch.randint(0, k, (n,), generator=g)] + torch.randn(
+            n, d, generator=g)
+        x, c = x.to(DEV), c.to(DEV)
+        mask = (torch.arange(n) % 4 != 1).to(DEV)
+        p = dops.plan(n, k, d)
+        idx, dist = dops.assign_clusters(x, c)
+        ridx, rdist = dref.assign_clusters_ref(x, c)
+        fidx, sums, counts, _ = fops.fused_masked_assign_update(x, c, mask)
+        _, rsums, rcounts, _ = dref.fused_masked_assign_update_ref(x, c, mask)
+        torch.cuda.synchronize()
+        what = f"n={n} d={d} k={k} ({'wide' if p.wide else 'staged'})"
+        check(bool(torch.equal(idx, ridx)) and same_bits(torch, dist, rdist),
+              f"assignment {what}: differs from the plain version")
+        scale = _member_abs_sums(torch, x, ridx, mask, k)
+        check(bool(torch.equal(fidx, ridx))
+              and bool(torch.equal(counts, rcounts))
+              and bool(((sums - rsums).abs() <= 1e-4 * scale + 1e-6).all()),
+              f"fused step {what}: differs from the plain version")
+        times = {}
+        wide_d = dops.WIDE_D
+        for form, forced in (("staged", 1 << 30), ("wide", 0)):
+            dops.WIDE_D = forced
+            try:
+                times[form] = (
+                    time_ms(torch, lambda: dops.assign_clusters(x, c),
+                            reps=10),
+                    time_ms(torch, lambda: fops.fused_masked_assign_update(
+                        x, c, mask), reps=10))
+            except ValueError:  # no room in shared memory
+                times[form] = None
+            finally:
+                dops.WIDE_D = wide_d
+        log(f"search forms {what}: bit-identical to the plain version; "
+            f"assignment / fused step ms: " + ", ".join(
+                f"{form} " + ("does not fit" if t is None else
+                              f"{t[0]:.4f} / {t[1]:.4f}")
+                for form, t in times.items()))
+
+
+def kernel_assign(torch, mods, sass: dict) -> dict:
     dops, dref, synth = mods["dops"], mods["dref"], mods["synth"]
     spec = spec_of(synth, ASSIGN_SHAPE)
     x, _, _ = synth.make_blobs(SEED, spec, device=DEV)
@@ -224,23 +332,50 @@ def kernel_assign(torch, mods) -> dict:
     idx, dist = dops.assign_clusters(x, c)
     ridx, rdist = dref.assign_clusters_ref(x, c)
     torch.cuda.synchronize()
+    rechecks = recheck_line(dops, dops.assign_clusters,
+                            f"assignment n={n} d={d} k={k}", n)
     mism = int((idx != ridx).sum())
     err = float((dist - rdist).abs().max())
     check(mism == 0, f"assignment: {mism} indices differ from the plain version")
     check(bool(torch.allclose(dist, rdist, rtol=2e-4, atol=2e-4)),
           f"assignment: distances differ by up to {err}")
+    log(f"assignment n={n} d={d} k={k}: indices exact, distances "
+        f"{'bit-identical' if same_bits(torch, dist, rdist) else 'differ'}"
+        f" (max |diff| {err!r})")
+    # near-ties, duplicates, points on centroids, inf and NaN rows: index
+    # and score bits of the plain version, with and without distances
+    for dt in (32, 5):
+        xt, ct = near_ties(torch, dt, SEED + dt)
+        for with_dists in (False, True):
+            tidx, tout = dops.assign_clusters(xt, ct, with_dists=with_dists)
+            tridx, trscore = dref.assign_scores_ref(xt, ct)
+            trout = dref.add_point_norms(xt, trscore) if with_dists else trscore
+            check(bool(torch.equal(tidx, tridx)) and same_bits(torch, tout,
+                                                                trout),
+                  f"assignment near-ties d={dt}: differs from the plain "
+                  f"version (with_dists={with_dists})")
+        recheck_line(dops, dops.assign_clusters,
+                     f"assignment near-ties n={xt.shape[0]} d={dt} "
+                     f"k={ct.shape[0]}", xt.shape[0])
+    log("assignment near-ties (midpoints +-1 ulp, duplicate centroids, points "
+        "on centroids, inf and NaN rows) at d=32 and d=5: bit-identical")
     ms = time_ms(torch, lambda: dops.assign_clusters(x, c), reps=20)
     kernel_only = time_ms(
         torch, lambda: dops.assign_clusters(x, c, with_dists=False), reps=20)
     plain = time_ms(torch, lambda: dref.assign_clusters_ref(x, c), reps=3)
     lib = time_ms(torch, lambda: torch.cdist(x, c).argmin(1), reps=20)
-    b, by = bound(n * d * 4 + k * d * 4 + n * 8, 2.0 * n * k * d)
+    # the scores as three TF32 products on the tensor cores; and the same
+    # work's fp32 CUDA-core bound
+    b, by = bound(n * d * 4 + k * d * 4 + n * 8, 3 * 2.0 * n * k * d,
+                  PEAK_TF32)
+    b32, _ = bound(n * d * 4 + k * d * 4 + n * 8, 2.0 * n * k * d)
     return dict(name="assign_clusters", route="cuda",
                 source="src/repro_torch/csrc/distance.cu",
                 replaces="src/repro/kernels/distance/distance.py:46",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib,
-                shape=f"n={n} d={d} k={k}", kernel_only_ms=kernel_only)
+                bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+                shape=f"n={n} d={d} k={k}", kernel_only_ms=kernel_only,
+                rechecks=rechecks, sass=sass)
 
 
 def _member_abs_sums(torch, x, idx, mask, k):
@@ -254,7 +389,7 @@ def _member_abs_sums(torch, x, idx, mask, k):
     return out
 
 
-def kernel_fused(torch, mods) -> dict:
+def kernel_fused(torch, mods, sass: dict) -> dict:
     fops, dops, dref, synth = (mods["fops"], mods["dops"], mods["dref"],
                                mods["synth"])
     spec = spec_of(synth, ASSIGN_SHAPE)
@@ -272,6 +407,8 @@ def kernel_fused(torch, mods) -> dict:
         aidx, _ = dops.assign_clusters(x, c, with_dists=False)
         again = fops.fused_masked_assign_update(x, c, mask)
         torch.cuda.synchronize()
+        rechecks[what] = recheck_line(dops, fops.fused_masked_assign_update,
+                                      f"fused {what}", x.shape[0])
         check(bool(torch.equal(idx, ridx)),
               f"fused {what}: {int((idx != ridx).sum())} indices differ "
               f"from the plain version")
@@ -301,12 +438,43 @@ def kernel_fused(torch, mods) -> dict:
             f"two launches bitwise equal")
         return err
 
+    rechecks = {}
     err = compare(x, c, mask, f"n={n} d={d} k={k}")
     nl, kl = FUSED_LARGE_K["n"], FUSED_LARGE_K["k"]
     xl = x[:nl].contiguous()
     cl = x[torch.randperm(n, generator=g)[:kl].to(DEV)].contiguous()
     ml = (torch.arange(nl) < int(nl * (1 - FUSED_MASKED_FRACTION))).to(DEV)
     compare(xl, cl, ml, f"n={nl} d={d} k={kl}")
+    # near-ties (as for the assignment): indices of the plain version and of
+    # assign_clusters, counts exact; the plain version's one-hot product
+    # turns a masked-out inf or NaN row into NaN sums (0 * inf), so its sums
+    # are taken over the finite rows
+    for dt in (32, 5):
+        xt, ct = near_ties(torch, dt, SEED + dt)
+        finite = torch.isfinite(xt).all(1)
+        mt = finite & (torch.arange(xt.shape[0], device=DEV) % 5 != 0)
+        tidx, tsums, tcounts, tinert = fops.fused_masked_assign_update(
+            xt, ct, mt)
+        tridx, _, trcounts, trinert = dref.fused_masked_assign_update_ref(
+            xt, ct, mt)
+        _, trsums, _, _ = dref.fused_masked_assign_update_ref(
+            xt[finite], ct, mt[finite])
+        taidx, _ = dops.assign_clusters(xt, ct)
+        torch.cuda.synchronize()
+        what = f"near-ties n={xt.shape[0]} d={dt} k={ct.shape[0]}"
+        rechecks[what] = recheck_line(
+            dops, fops.fused_masked_assign_update, f"fused {what}",
+            xt.shape[0])
+        check(bool(torch.equal(tidx, tridx)) and bool(torch.equal(tidx, taidx))
+              and bool(torch.equal(tcounts, trcounts)),
+              f"fused {what}: indices or counts differ from the plain version")
+        tscale = _member_abs_sums(torch, xt[finite], tridx[finite], mt[finite],
+                                  ct.shape[0])
+        check(bool(((tsums - trsums).abs() <= 1e-4 * tscale + 1e-6).all())
+              and bool(torch.allclose(tinert, trinert, rtol=1e-4, atol=0.0)),
+              f"fused {what}: sums or inertia differ from the plain version")
+    log("fused near-ties at d=32 and d=5: indices equal to plain and "
+        "assign_clusters, counts exact, sums and inertia within 1e-4")
 
     ms = time_ms(torch, lambda: fops.fused_masked_assign_update(x, c, mask),
                  reps=20)
@@ -322,12 +490,17 @@ def kernel_fused(torch, mods) -> dict:
         return onehot.T @ x, onehot.sum(0)
 
     lib = time_ms(torch, composed, reps=10)
-    b, by = bound(n * d * 4 + 5 * n + 8 * k * d + 4 * k + 4, 2.0 * n * k * d)
+    moved = n * d * 4 + 5 * n + 8 * k * d + 4 * k + 4
+    # the scores as three TF32 products on the tensor cores; and the same
+    # work's fp32 CUDA-core bound
+    b, by = bound(moved, 3 * 2.0 * n * k * d, PEAK_TF32)
+    b32, _ = bound(moved, 2.0 * n * k * d)
     return dict(name="fused_masked_assign_update", route="cuda",
                 source="src/repro_torch/csrc/fused.cu",
                 replaces="src/repro/kernels/distance/fused.py:42",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib,
+                bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+                rechecks=rechecks, sass=sass,
                 shape=f"n={n} d={d} k={k} masked={FUSED_MASKED_FRACTION}",
                 library_call="cdist(x, c).argmin(1) + masked one-hot "
                              "matmul (composed)",
@@ -637,10 +810,11 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def profile_window(torch, label, fn) -> None:
+def profile_window(torch, label, fn) -> dict:
     """Run ``fn`` under ``torch.profiler``; print the device's busy share of
-    the window's wall time and the kernels that took the most device time.
-    Only the device's own entries (kernels, copies, memsets) are summed: the
+    the window's wall time and the kernels that took the most device time,
+    and return the wall, the busy time and each kernel's time (ms).  Only
+    the device's own entries (kernels, copies, memsets) are summed: the
     host ops that launched them carry the same time again."""
     prof_mod = torch.profiler
     acts = [prof_mod.ProfilerActivity.CPU, prof_mod.ProfilerActivity.CUDA]
@@ -660,6 +834,9 @@ def profile_window(torch, label, fn) -> None:
         f"wall, {sum(e.count for e in evts)} device ops; top: " + "; ".join(
             f"{e.key[:60]} x{e.count} {_device_us(e) / 1e3:.3f} ms"
             for e in top))
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                by_kernel={e.key: (e.count, _device_us(e) / 1e3)
+                           for e in evts})
 
 
 def profile_serving(torch, mods, cfg) -> None:
@@ -782,9 +959,9 @@ def main_path(torch, mods, counters) -> dict:
     return launches
 
 
-def _svc_workload(serve_mine, algo, shape, seed):
+def _svc_workload(serve_mine, algo, shape, seed, requests=SVC_REQUESTS):
     return serve_mine.build_workload(
-        SVC_REQUESTS, 4, algo, features=shape["features"],
+        requests, 4, algo, features=shape["features"],
         clusters=shape["clusters"], points=shape["points"],
         min_points=shape["min_points"], seed=seed)
 
@@ -821,6 +998,41 @@ def _report_service(label, svc, wall, results) -> dict:
             n: {k: st[k] for k in ("batches", "requests", "exec_s", "host_s",
                                    "device_s")} for n, st in lanes.items()}))
     return snap
+
+
+def profile_lane_batch(torch, mods, warm) -> None:
+    """Where one K-Means batch of the kernel lane spends its time: a batch
+    of new requests on a service of its own (warmed as the main one), under
+    the profiler; its device time split into the fused step's kernels and
+    the rest, beside the lane's exec_s - host_s for the batch (a residual
+    on the host clock)."""
+    work = _svc_workload(mods["serve_mine"], "kmeans", SVC_KMEANS, SEED + 7,
+                         requests=SVC_MAX_BATCH)
+    svc = _svc(mods, workdir(mods, "prof_"), warm_start=warm)
+    svc.start()
+    try:
+        profile_window(torch, "warm-up",
+                       lambda: torch.ones(8, device=DEV) + 1)
+        prof = profile_window(
+            torch, f"service K-Means batch ({len(work)} requests, "
+                   f"cuda-kernel)",
+            lambda: _drive(mods, svc, work, "cuda-kernel"))
+    finally:
+        svc.stop()   # joins the lane: the batch is recorded after this
+    lane = svc.metrics_snapshot()["by_executor"]["cuda-kernel"]
+    fused = [(key, cnt, ms) for key, (cnt, ms) in prof["by_kernel"].items()
+             if any(name in key for name in ("fused_partials_kernel",
+                                             "reduce_partials_kernel",
+                                             "pack_centroids"))]
+    fused_ms = sum(ms for _k, _c, ms in fused)
+    resid = lane["exec_s"] - lane["host_s"]
+    log(f"service K-Means batch profile: device busy {prof['busy_ms']:.3f} "
+        f"ms of {prof['wall_ms']:.3f} ms wall; the fused step's kernels "
+        f"{fused_ms:.3f} ms (" + "; ".join(
+            f"{key[:40]} x{cnt} {ms:.3f} ms" for key, cnt, ms in fused)
+        + f"), other device work {prof['busy_ms'] - fused_ms:.3f} ms; the "
+        f"lane's exec_s - host_s {resid:.3f} s (exec_s {lane['exec_s']:.3f}"
+        f" s, host_s {lane['host_s']:.3f} s, {lane['batches']} batch(es))")
 
 
 def service_path(torch, mods, counters) -> dict:
@@ -940,6 +1152,7 @@ def service_path(torch, mods, counters) -> dict:
     log(f"service Lloyd iteration on the card: {per_iter:.3f} ms per "
         f"iteration (host clock, step + shift sync) against the fused "
         f"kernel's {kernel:.3f} ms (CUDA events)")
+    profile_lane_batch(torch, mods, warm)
     return launches
 
 
@@ -1068,9 +1281,11 @@ def main() -> int:
         mods["tmp"] = tmp
         try:
             sass = build(_build)
-            rows = [kernel_assign(torch, mods), kernel_fused(torch, mods),
-                    *kernel_neighbor(torch, mods),
-                    kernel_attention(torch, mods, sass)]
+            rows = [kernel_assign(torch, mods, sass["distance"]),
+                    kernel_fused(torch, mods, sass["fused"])]
+            wide_rows(torch, mods)
+            rows += [*kernel_neighbor(torch, mods),
+                     kernel_attention(torch, mods, sass["flash_sm90"])]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
             log(f"one-job path: {time.time() - t_path:.1f} s, launches "
@@ -1118,6 +1333,7 @@ def main() -> int:
                         "simt_max_abs_err": row.get("simt_max_abs_err"),
                         "simt_block_error": row.get("simt_block_error"),
                         "sass": row.get("sass"),
+                        "rechecks": row.get("rechecks"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,190 +7,346 @@
 //
 // What it computes, for points x (n, d), centroids c (k, d), mask (n,):
 // - idx[i]: the nearest centroid of every point (masked rows included), by
-//   the score ||c_j||^2 - 2 x_i.c_j, first minimum on ties;
+//   the score ||c_j||^2 - 2 x_i.c_j, first minimum on ties, bit for bit
+//   the index assign_clusters and the plain version give;
 // - sums[j, :] = sum of x_i over unmasked i with idx[i] = j, counts[j] the
 //   number of such i, inertia = sum over unmasked i of
 //   max(min(score_i, 3.4e38) + ||x_i||^2, 0).
 //
-// What bounds it on an H100: 2*n*k*d fp32 operations for the scores against
-// n*d*4 + 5n bytes (x and the mask read once, idx written once).  At the
-// service's shape (n = 2^20, d = 32, k = 64) it is bound by the fp32 CUDA
-// cores, like the assignment kernel.  Tensor cores are out for the same
-// reason: TF32 would move argmins.
+// What bounds it on an H100: reading x (and the mask) once: n*d*4 + 5n
+// bytes, 0.042 ms at the service's shape (n = 2^20, d = 32, k = 64).  The
+// scores take the tensor cores as in distance.cu (the search is
+// assign_common.cuh, shared with it); the accumulation is d adds per
+// unmasked point.
 //
-// Design:
-// - Pass 1: each block owns a contiguous chunk of points (tiles_per_block
-//   tiles of 128), one thread per point of the current tile.  The search is
-//   the inlined code of assign_common.cuh, so idx equals assign_clusters bit
-//   for bit.  The block then folds its tile into per-block accumulators in
-//   shared memory in a FIXED order: thread f owns feature f and walks the
-//   tile's points in index order, so each sum has one writer and one order.
-//   Thread 0 sums the tile's inertia terms in index order.
-// - Centroid tiles are staged through shared memory (any k works); the
-//   accumulators cover acc_k centroids at a time, and a block whose k does
-//   not fit walks its chunk again for each further range, reading back the
-//   idx it wrote in the first range.
-// - Each block writes its partial [sums (k*d) | counts (k) | inertia] to its
-//   own slice of a partials buffer: no float atomics anywhere.
-// - Pass 2 reduces the partials over blocks in block order, one thread per
-//   output element.  The same inputs give the same launch shape and so
-//   bitwise-identical sums on every run.  The second pass exists because
-//   Hopper's blocks run in parallel: the Pallas kernel carried the sums in
-//   one VMEM block across a sequential grid axis.
-// - Masked rows are assigned but skipped by the accumulation; counts are
-//   fp32 (as in the reference) and exact up to 2^24 rows, which the wrapper
-//   enforces.
-
-#include <cuda_runtime.h>
-#include <math.h>
+// Design, and what it does about the CUDA-core kernel's costs:
+// - The search: see assign_common.cuh (TMA-staged x, 3xTF32 candidate
+//   scores, a certified window, an exact recheck).  The window is
+//   alpha(d) ||x|| cmax + 2^-21 (cnmax + 2 ||x|| cmax) with alpha(d) =
+//   (d + 64 ceil(d/8) + 12) 2^-21, four times a first-order bound on the
+//   split residuals, the dropped lo.lo product, the tensor cores'
+//   truncating accumulation and both paths' rounding (derived there,
+//   item 2).
+// - The accumulation was serial: only the threads f < d worked, each
+//   walking the tile's points in order with a device-memory load per step,
+//   and thread 0 alone summed the inertia terms and the counts.  Now every
+//   warp works: the sums of centroid j belong to warp j % 4, which takes
+//   its points in index order (a ballot over 32 rows at a time), two at a
+//   step so their shared-memory round trips overlap, one lane per feature,
+//   reading the rows from the staged tile; every sum has one writer and
+//   the order of the points, whatever the warps or the card.  Counts are
+//   integers in shared memory, one integer atomic per point, exact in any
+//   order.  Thread r sums the inertia terms of row r of every tile in tile
+//   order, and the block adds the 128 sums by a fixed tree at its end.
+// - Each block owns tiles_per_block tiles and writes its partial
+//   [sums (k*d) | counts (k) | inertia] to its own slice: no float
+//   atomics.  The sums cover acc_k centroids of shared memory at a time;
+//   when k needs more, the block walks its tiles again for each further
+//   range (searching again: the same arithmetic gives the same indices).
+// - Wide rows (the plan's choice): the search streams the products box by box
+//   (search_tile_wide), the sums read the rows from device memory, and
+//   further ranges read back the indices the block wrote instead of
+//   searching again.
+// - Pass 2 reduced 1,024 partials with one thread per element on 9 blocks.
+//   Now one block takes 32 elements: each of its 8 warps sums a fixed
+//   eighth of the blocks in order, and warp 0 adds the eight in order.
+//   The launch shape is a function of (n, k, d), so the same inputs give
+//   the same bits on every run and every card.
+// - Counts are fp32 (as in the reference) and exact up to 2^24 rows, which
+//   the wrapper enforces.
 
 #include "assign_common.cuh"
 
 namespace {
 
-using repro_assign::kTileK;
+using namespace repro_assign;
 
-constexpr int kThreads = 128;        // points per tile, one per thread
-constexpr float kBig = 3.4e38f;      // the reference's score clamp
-constexpr int kReduceThreads = 256;
+constexpr float kBig = 3.4e38f;  // the reference's score clamp
+constexpr int kReduceWarps = 8;
 
+__host__ __device__ inline size_t acc_floats(int d, int tm, int acc_k) {
+  // sums, counts, and per-row index / weight / inertia term, kept even so
+  // the mbarriers after them are 8-byte aligned
+  const size_t f = (size_t)acc_k * d + acc_k + 3 * (size_t)tm;
+  return f + (f & 1);
+}
+
+// The sums of one tile's rows, in row order: centroid j0 + jj belongs to
+// warp jj % 4, which adds its rows (a ballot over 32 rows at a time), one
+// lane per feature, xv(r, f) reading feature f of row r.  row_j / row_w
+// hold each row's centroid and weight.
+template <class XV>
+__device__ __forceinline__ void add_rows(float* acc, const int* row_j,
+                                         const int* row_w, int tm, int d,
+                                         int j0, int ka, XV xv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r0 = 0; r0 < tm; r0 += 32) {
+    const int r = r0 + lane;
+    int jj = -1;
+    if (r < tm && row_w[r]) {
+      jj = row_j[r] - j0;
+      if (jj < 0 || jj >= ka || (jj & (kWarps - 1)) != warp) jj = -1;
+    }
+    unsigned bits = __ballot_sync(0xffffffffu, jj >= 0);
+    while (bits) {  // two rows a step: their round trips overlap
+      const int b0 = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const int b1 = bits ? __ffs(bits) - 1 : b0;
+      const int jb = bits ? __shfl_sync(0xffffffffu, jj, b1) : -1;
+      bits &= bits - 1;
+      const int ja = __shfl_sync(0xffffffffu, jj, b0);
+      float* sa = acc + (size_t)ja * d;
+      float* sb = acc + (size_t)max(jb, 0) * d;
+      for (int f = lane; f < d; f += 32) {
+        const float x0 = xv(r0 + b0, f);
+        const float x1 = xv(r0 + b1, f);
+        if (jb == ja) {  // one centroid: in order
+          sa[f] = __fadd_rn(__fadd_rn(sa[f], x0), x1);
+        } else {
+          const float va = sa[f];
+          const float vb = jb >= 0 ? sb[f] : 0.f;
+          sa[f] = __fadd_rn(va, x0);
+          if (jb >= 0) sb[f] = __fadd_rn(vb, x1);
+        }
+      }
+    }
+  }
+}
+
+// Pass 1.  WIDE: tiles of kWideTM points searched by search_tile_wide,
+// rows read from device memory, and the search made once: further ranges
+// of sums read back the indices the block wrote (how = the copy width);
+// else tiles staged through the ring (how = tma).
+template <int NT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
-fused_partials_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                      const unsigned char* __restrict__ mask, int n, int k,
-                      int d, int tiles_per_block, int acc_k,
-                      int* __restrict__ idx_out, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  float* cs = smem;                             // [kTileK * d] centroid tile
-  float* cn = cs + kTileK * d;                  // [kTileK] its squared norms
-  float* acc = cn + kTileK;                     // [acc_k * d] sums
-  float* cnt = acc + (size_t)acc_k * d;         // [acc_k] counts
-  float* wd2 = cnt + acc_k;                     // [kThreads] inertia terms
-  int* idx_s = reinterpret_cast<int*>(wd2 + kThreads);        // [kThreads]
-  unsigned char* w_s =
-      reinterpret_cast<unsigned char*>(idx_s + kThreads);     // [kThreads]
+fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const float* __restrict__ x,
+                      const unsigned char* __restrict__ mask,
+                      const float* __restrict__ cpack, int n, int k, int d,
+                      const Plan p, int how, int acc_k,
+                      int* __restrict__ idx_out, float* __restrict__ part,
+                      unsigned long long* __restrict__ stats) {
+  extern __shared__ unsigned char smem_raw[];
+  float* base = aligned_smem(smem_raw);
+  const int tm = p.tm, resident = p.resident;
+  const int tiles = (n + tm - 1) / tm;
+  const int tile0 = blockIdx.x * p.tiles_per_block;
+  const int ntiles = min(p.tiles_per_block, tiles - tile0);
+  const int nkc = (k + 8 * NT - 1) / (8 * NT);
+  float* slots = base + kStages * stage_bytes(d, tm) / 4;
+  float* acc = WIDE ? base + kWideStages * wide_step_floats(NT)
+                    : slots + (size_t)(resident ? nkc : 1) *
+                                  chunk_floats(d, NT);
+  int* cnt = reinterpret_cast<int*>(acc + (size_t)acc_k * d);
+  int* row_j = cnt + acc_k;
+  int* row_w = row_j + tm;
+  float* row_d2 = reinterpret_cast<float*>(row_w + tm);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(acc + acc_floats(d, tm, acc_k));
 
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t stride = (size_t)k * d + k + 1;
   float* mine = part + (size_t)blockIdx.x * stride;
-  const int p_begin = blockIdx.x * tiles_per_block * kThreads;
-  const int p_end = min(n, p_begin + tiles_per_block * kThreads);
-  float inertia = 0.f;  // thread 0's running sum, in point order
-
-  for (int j0 = 0; j0 < k; j0 += acc_k) {
-    const int ka = min(acc_k, k - j0);
-    for (int e = tid; e < ka * d; e += kThreads) acc[e] = 0.f;
-    for (int e = tid; e < ka; e += kThreads) cnt[e] = 0.f;
-    // the first __syncthreads below orders these stores before any update
-    for (int t0 = p_begin; t0 < p_end; t0 += kThreads) {
-      const int i = t0 + tid;
-      const bool live = i < p_end;
-      int j;
-      if (j0 == 0) {
-        const float* xi = x + (size_t)(live ? i : 0) * d;
-        float best;
-        repro_assign::nearest_centroid(xi, c, k, d, cs, cn, best, j);
-        float xn = 0.f;
-        for (int f = 0; f < d; ++f) {
-          const float v = __ldg(xi + f);
-          xn = __fadd_rn(xn, __fmul_rn(v, v));
-        }
-        const float d2 = fmaxf(__fadd_rn(fminf(best, kBig), xn), 0.f);
-        const bool w = live && mask[i] != 0;
-        if (live) idx_out[i] = j;
-        wd2[tid] = w ? d2 : 0.f;
-        w_s[tid] = w ? 1 : 0;
-      } else {
-        // written by this same thread in the first range
-        j = live ? idx_out[i] : 0;
-        w_s[tid] = (live && mask[i] != 0) ? 1 : 0;
+  const Ring ring{&xmap, x, n, d, tm, how, tile0, ntiles, base, bars};
+  if constexpr (!WIDE) {
+    ring.init();
+    if (resident) {
+      const Centroids cs{cpack, slots, k, d, NT, 1};
+      for (int ch = 0; ch < nkc; ++ch) {
+        stage_chunk(cs, ch, slots + (size_t)ch * chunk_floats(d, NT));
       }
-      idx_s[tid] = j;
-      __syncthreads();
-      const int tl = min(kThreads, p_end - t0);
-      if (j0 == 0 && tid == 0) {
-        for (int p = 0; p < tl; ++p) inertia = __fadd_rn(inertia, wd2[p]);
-      }
-      for (int f = tid; f < d; f += kThreads) {
-        const float* xt = x + (size_t)t0 * d + f;
-        for (int p = 0; p < tl; ++p) {
-          const int jj = idx_s[p] - j0;
-          if (w_s[p] && jj >= 0 && jj < ka) {
-            acc[jj * d + f] = __fadd_rn(acc[jj * d + f], xt[(size_t)p * d]);
-            if (f == 0) cnt[jj] = __fadd_rn(cnt[jj], 1.f);
-          }
-        }
-      }
-      __syncthreads();  // the tile's idx_s / w_s are read before reuse
     }
-    for (int e = tid; e < ka * d; e += kThreads) {
+  }
+
+  const int ranges = (k + acc_k - 1) / acc_k;
+  const int total = ranges * ntiles;  // the ring's sequence of tiles
+  float inertia = 0.f;  // thread r's: row r of each tile, in tile order
+  Rechecks rc;
+  if constexpr (!WIDE) {
+    for (int q = 0; q < kStages - 1 && q < total; ++q) {
+      ring.issue(q);
+      ring.commit();
+    }
+  }
+  for (int rg = 0; rg < ranges; ++rg) {
+    const int j0 = rg * acc_k, ka = min(acc_k, k - j0);
+    for (int e = threadIdx.x; e < ka * d; e += kThreads) acc[e] = 0.f;
+    for (int e = threadIdx.x; e < ka; e += kThreads) cnt[e] = 0;
+    __syncthreads();
+    const Centroids cs{cpack, slots, k, d, NT, resident};
+    for (int tt = 0; tt < ntiles; ++tt) {
+      const int q = rg * ntiles + tt;
+      const int row0 = (tile0 + tt) * tm;
+      const int valid = min(tm, n - row0);
+      // thread r loads row r's weight now and stores it after the search
+      // (tm <= kThreads)
+      const int w_r = threadIdx.x < valid ? mask[row0 + threadIdx.x] != 0 : 0;
+      if (threadIdx.x >= valid && threadIdx.x < tm) row_d2[threadIdx.x] = 0.f;
+      const auto emit = [&](int r, int j, float s, float xn) {
+        if (rg == 0) idx_out[row0 + r] = j;
+        const float t = __fadd_rn((s > kBig) ? kBig : s, xn);
+        row_j[r] = j;
+        row_d2[r] = (t < 0.f) ? 0.f : t;  // NaN stays NaN
+      };
+      const float* stage = nullptr;
+      if constexpr (WIDE) {
+        if (rg == 0) {
+          search_tile_wide<NT>(x, n, d, row0, cpack, k, base, how, &rc, emit);
+        } else if (threadIdx.x < valid) {  // written by this block
+          row_j[threadIdx.x] = idx_out[row0 + threadIdx.x];
+        }
+      } else {
+        if (q + kStages - 1 < total) ring.issue(q + kStages - 1);
+        ring.commit();
+        ring.wait(q);
+        stage = ring.stage(q);
+        search_tile<NT>(cs, stage, tm, valid, rg == 0 ? &rc : nullptr, emit);
+      }
+      if (threadIdx.x < tm) row_w[threadIdx.x] = w_r;
+      __syncthreads();
+
+      // counts: integers, so the order does not matter (no float atomics)
+      if (threadIdx.x < tm && row_w[threadIdx.x]) {
+        const int jj = row_j[threadIdx.x] - j0;
+        if (jj >= 0 && jj < ka) atomicAdd(cnt + jj, 1);
+      }
+      if constexpr (WIDE) {
+        add_rows(acc, row_j, row_w, tm, d, j0, ka, [&](int r, int f) {
+          return __ldg(x + (size_t)(row0 + r) * d + f);
+        });
+      } else {
+        add_rows(acc, row_j, row_w, tm, d, j0, ka, [&](int r, int f) {
+          return stage[swz(r, f, tm)];
+        });
+      }
+      // thread r's inertia terms: its row of every tile, in tile order
+      if (rg == 0 && w_r) inertia = __fadd_rn(inertia, row_d2[threadIdx.x]);
+      __syncthreads();  // the stage and the row arrays are free again
+    }
+    for (int e = threadIdx.x; e < ka * d; e += kThreads) {
       mine[(size_t)j0 * d + e] = acc[e];
     }
-    for (int e = tid; e < ka; e += kThreads) {
-      mine[(size_t)k * d + j0 + e] = cnt[e];
+    for (int e = threadIdx.x; e < ka; e += kThreads) {
+      mine[(size_t)k * d + j0 + e] = (float)cnt[e];  // exact below 2^24
     }
     __syncthreads();  // acc / cnt are written out before the next range
   }
-  if (tid == 0) mine[(size_t)k * d + k] = inertia;
+  // the threads' inertia by a fixed tree: lanes, then warps in order
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    inertia = __fadd_rn(inertia, __shfl_xor_sync(0xffffffffu, inertia, o));
+  }
+  float* warp_sums = acc;  // free after the last range's write-out
+  if (lane == 0) warp_sums[warp] = inertia;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = warp_sums[0];
+    for (int w = 1; w < kWarps; ++w) v = __fadd_rn(v, warp_sums[w]);
+    mine[(size_t)k * d + k] = v;
+  }
+  rc.flush(stats);
 }
 
-// out[e] = sum over blocks b, in order, of part[b * stride + e].
-__global__ void __launch_bounds__(kReduceThreads)
+// out[e] = sum over blocks of part[b * stride + e]: warp w sums blocks
+// [w B / 8, (w + 1) B / 8) in order, then warp 0 adds the eight in order.
+__global__ void __launch_bounds__(32 * kReduceWarps)
 reduce_partials_kernel(const float* __restrict__ part, int blocks,
                        int stride, float* __restrict__ out) {
-  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (e >= stride) return;
+  __shared__ float sums[kReduceWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) {
-    s = __fadd_rn(s, part[(size_t)b * stride + e]);
+  if (e < stride) {
+    const int b1 = (int)((long long)(warp + 1) * blocks / kReduceWarps);
+#pragma unroll 8
+    for (int b = (int)((long long)warp * blocks / kReduceWarps); b < b1; ++b) {
+      s = __fadd_rn(s, part[(size_t)b * stride + e]);
+    }
   }
-  out[e] = s;
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < stride) {
+    float t = sums[0][lane];
+    for (int w = 1; w < kReduceWarps; ++w) t = __fadd_rn(t, sums[w][lane]);
+    out[e] = t;
+  }
+}
+
+// The pass-1 kernel for nt 8-centroid groups a chunk (1, 2, 4 or 8).
+decltype(&fused_partials_kernel<8, false>) fused_kernel_for(int nt,
+                                                            int wide) {
+  switch (nt) {
+    case 1: return wide ? fused_partials_kernel<1, true>
+                        : fused_partials_kernel<1, false>;
+    case 2: return wide ? fused_partials_kernel<2, true>
+                        : fused_partials_kernel<2, false>;
+    case 4: return wide ? fused_partials_kernel<4, true>
+                        : fused_partials_kernel<4, false>;
+    default: return wide ? fused_partials_kernel<8, true>
+                         : fused_partials_kernel<8, false>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one pass-1 block needs for width d and acc_k centroids.
-size_t fused_smem_bytes(int d, int acc_k) {
-  return (repro_assign::search_smem_floats(d) + (size_t)acc_k * d + acc_k +
-          kThreads) * sizeof(float) +
-         kThreads * sizeof(int) + kThreads;
+// Shared memory one pass-1 block needs (bytes).
+size_t fused_smem_bytes(int d, int tm, int nt, int slots, int wide,
+                        int acc_k) {
+  return (wide ? wide_smem_bytes(nt) : search_smem_bytes(d, tm, nt, slots)) +
+         acc_floats(d, tm, acc_k) * sizeof(float) +
+         kStages * sizeof(uint64_t);
 }
 
 // x: (n, d) f32, c: (k, d) f32, mask: (n,) bool, all contiguous on the
-// current device; n >= 1.  part: blocks * (k*d + k + 1) f32 scratch, where
-// blocks = ceil(ceil(n / 128) / tiles_per_block).  Writes idx (n,) i32 and
-// out = [sums (k*d) | counts (k) | inertia (1)] f32 on `stream`.  Returns
-// the CUDA error code of the launches (0 on success); does not synchronise.
+// current device; n >= 1.  tm, nt, resident, tiles_per_block and wide as
+// for assign_clusters; acc_k centroids' sums fit the shared memory at a
+// time.  cpack: centroid_pack_floats(k, d, nt) f32 scratch; part:
+// blocks * (k*d + k + 1) f32 scratch, blocks = ceil(ceil(n / tm) /
+// tiles_per_block); stats: 2 u64 scratch.  Writes idx (n,) i32 and
+// out = [sums (k*d) | counts (k) | inertia (1)] f32 on `stream`.  Returns 0
+// or an error code for kernel_error_string; does not synchronise.
 int fused_masked_assign_update(const void* x, const void* c, const void* mask,
-                               int n, int k, int d, int tiles_per_block,
-                               int acc_k, void* idx, void* part, void* out,
-                               void* stream) {
-  const size_t smem = fused_smem_bytes(d, acc_k);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                               int n, int k, int d, int tm, int nt,
+                               int resident, int tiles_per_block, int wide,
+                               int acc_k, void* cpack, void* idx, void* part,
+                               void* out, void* stats, void* stream) {
+  const Plan p{tm, resident, tiles_per_block, wide};
+  if (const int err = check_plan(p, nt)) return err;
+  if (acc_k < 1) return (int)cudaErrorInvalidValue;
+  const int nkc = (k + 8 * nt - 1) / (8 * nt);
+  const size_t smem =
+      fused_smem_bytes(d, tm, nt, resident ? nkc : 1, wide, acc_k);
+  // as in assign_clusters: TMA, or for wide rows the copy width
+  const int tma = !wide && use_tma(x, d) ? 1 : 0;
+  const int how = wide ? wide_copy_width(x, d) : tma;
+  CUtensorMap xmap{};
+  if (tma) {
+    const int err = encode_x(&xmap, x, n, d, tm);
+    if (err) return err;
   }
-  const int tiles = (n + kThreads - 1) / kThreads;
-  const int blocks = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const auto kernel = fused_kernel_for(nt, wide);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  fused_partials_kernel<<<blocks, kThreads, smem, s>>>(
-      (const float*)x, (const float*)c, (const unsigned char*)mask, n, k, d,
-      tiles_per_block, acc_k, (int*)idx, (float*)part);
-  cudaError_t e = cudaGetLastError();
+  pack_centroids<<<nkc, 256, 0, s>>>((const float*)c, k, d, nt,
+                                     (float*)cpack,
+                                     (unsigned long long*)stats);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (n + tm - 1) / tm;
+  const int blocks = (tiles + p.tiles_per_block - 1) / p.tiles_per_block;
+  kernel<<<blocks, kThreads, smem, s>>>(
+      xmap, (const float*)x, (const unsigned char*)mask, (const float*)cpack,
+      n, k, d, p, how, acc_k, (int*)idx, (float*)part,
+      (unsigned long long*)stats);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int stride = k * d + k + 1;
-  const unsigned rblocks = (unsigned)((stride + kReduceThreads - 1) /
-                                      kReduceThreads);
-  reduce_partials_kernel<<<rblocks, kReduceThreads, 0, s>>>(
+  reduce_partials_kernel<<<(stride + 31) / 32, 32 * kReduceWarps, 0, s>>>(
       (const float*)part, blocks, stride, (float*)out);
   return (int)cudaGetLastError();
-}
-
-const char* kernel_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -5,12 +5,16 @@ kernel and then a one-hot matrix product over ``x`` for the centroid
 update.  ``csrc/fused.cu`` computes the assignment *and* the masked
 per-centroid sums, counts and inertia in one kernel pass over ``x`` plus a
 small deterministic reduction of per-block partials (no float atomics, so
-the sums are bitwise identical from run to run).
+the sums are bitwise identical from run to run).  Its search is the
+assignment kernel's (``csrc/assign_common.cuh``), launched by the same
+:func:`~repro_torch.kernels.distance.ops.plan`.
 
 A CPU tensor takes the plain version (:func:`fused_masked_assign_update_ref`
 in :mod:`.ref`); a CUDA tensor launches the kernel on the current stream or
 raises — there is no fallback.  ``fused_masked_assign_update.launches``
-counts kernel launches (plain runs do not count).
+counts kernel launches (plain runs do not count);
+``fused_masked_assign_update.recheck_stats`` holds the last launch's count
+of exact rechecks (``ops.rechecks`` reads it).
 """
 
 from __future__ import annotations
@@ -21,16 +25,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.distance import ops
 from repro_torch.kernels.distance.ref import fused_masked_assign_update_ref
 
-# A block's shared memory: 227 KB on Hopper.
-_MAX_SMEM = 232448
-# Points per tile (one thread each) — must match kThreads in fused.cu.
-_TILE = 128
-# Per-block centroid sums held in shared memory at a time (32 KB).
-_ACC_FLOATS = 8192
-# At most this many blocks, and at most this many partial floats in all.
-_MAX_BLOCKS = 1024
+# At most this many partial floats in all.
 _MAX_PARTIAL_FLOATS = 1 << 24
 # fp32 counts are exact up to 2^24 rows.
 MAX_ROWS = 1 << 24
@@ -40,8 +38,10 @@ __all__ = ["fused_masked_assign_update", "fused_masked_assign_update_ref"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_masked_assign_update": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
-    "fused_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+         _P, _P], ctypes.c_int),
+    "fused_smem_bytes": ([_I, _I, _I, _I, _I, _I], ctypes.c_size_t),
+    "centroid_pack_floats": ([_I, _I, _I], ctypes.c_size_t),
 }
 
 
@@ -81,20 +81,29 @@ def _check_inputs(x: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
 
 
+def _plan(n: int, k: int, d: int) -> Tuple[ops.Plan, int]:
+    """The search's plan (blocks capped so the partials stay a few MB and
+    pass 2 short) and acc_k, the centroids whose sums fit the shared
+    memory left."""
+    stride = k * d + k + 1
+    p = ops.plan(n, k, d, max_blocks=max(1, min(
+        ops.MAX_BLOCKS, _MAX_PARTIAL_FLOATS // stride)))
+    left = ops.MAX_SMEM - ops.fused_bytes(d, p, 0)
+    acc_k = max(1, min(k, left // (4 * (d + 1))))
+    while acc_k > 1 and ops.fused_bytes(d, p, acc_k) > ops.MAX_SMEM:
+        acc_k -= 1
+    return p, acc_k
+
+
 def launch_shape(n: int, k: int, d: int) -> Tuple[int, int, int]:
     """(tiles_per_block, blocks, acc_k) of pass 1 for this problem.
 
     A function of the shape alone, so the same inputs always reduce in the
-    same order.  Blocks are capped so the partials stay a few MB and pass 2
-    stays short; ``acc_k`` centroids' sums fit the shared-memory budget.
+    same order.  Tiles hold ``ops.plan(n, k, d).tm`` points; ``acc_k``
+    centroids' sums fit the shared memory at a time.
     """
-    stride = k * d + k + 1
-    tiles = -(-n // _TILE)
-    max_blocks = max(1, min(_MAX_BLOCKS, _MAX_PARTIAL_FLOATS // stride))
-    tiles_per_block = -(-tiles // max_blocks)
-    blocks = -(-tiles // tiles_per_block)
-    acc_k = max(1, min(k, _ACC_FLOATS // d))
-    return tiles_per_block, blocks, acc_k
+    p, acc_k = _plan(n, k, d)
+    return p.tiles_per_block, p.blocks, acc_k
 
 
 def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
@@ -104,21 +113,33 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
     if n * d >= 2**31 or stride >= 2**31:
         raise ValueError(f"shape too large for int32 indexing: n={n}, k={k}, "
                          f"d={d}")
-    tiles_per_block, blocks, acc_k = launch_shape(n, k, d)
-    lib = _lib()
-    if lib.fused_smem_bytes(d, acc_k) > _MAX_SMEM:
+    p, acc_k = _plan(n, k, d)
+    if ops.fused_bytes(d, p, acc_k) > ops.MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
+    lib = _lib()
+    smem = lib.fused_smem_bytes(d, p.tm, p.nt, p.slots, int(p.wide), acc_k)
+    if smem != ops.fused_bytes(d, p, acc_k):
+        raise RuntimeError(f"fused_smem_bytes says {smem} bytes, the plan "
+                           f"{ops.fused_bytes(d, p, acc_k)}: ops.py's layout "
+                           f"has drifted from csrc/fused.cu")
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
-    part = torch.empty(blocks * stride, dtype=torch.float32, device=x.device)
+    cpack = torch.empty(lib.centroid_pack_floats(k, d, p.nt),
+                        dtype=torch.float32, device=x.device)
+    part = torch.empty(p.blocks * stride, dtype=torch.float32,
+                       device=x.device)
     out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    stats = torch.empty(2, dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_masked_assign_update(
-            x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d,
-            tiles_per_block, acc_k, idx.data_ptr(), part.data_ptr(),
-            out.data_ptr(), stream)
+            x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d, p.tm, p.nt,
+            int(p.resident), p.tiles_per_block, int(p.wide), acc_k,
+            cpack.data_ptr(),
+            idx.data_ptr(), part.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            stream)
     _build.check(lib, err, "fused_masked_assign_update")
     fused_masked_assign_update.launches += 1
+    fused_masked_assign_update.recheck_stats = stats
     return (idx, out[:k * d].view(k, d), out[k * d:k * d + k],
             out[k * d + k])
 
@@ -151,3 +172,4 @@ def fused_masked_assign_update(
 
 
 fused_masked_assign_update.launches = 0
+fused_masked_assign_update.recheck_stats = None

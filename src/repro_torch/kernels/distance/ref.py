@@ -13,6 +13,12 @@ oracle for small inputs.
 :func:`fused_masked_assign_update_ref` is the plain twin of the fused
 masked Lloyd step (``csrc/fused.cu``): the same assignment, then the masked
 per-centroid sums and counts as a one-hot matrix product, chunked by rows.
+
+:func:`tf32_round`, :func:`tf32x3_scores`, :func:`score_window` and
+:func:`recheck_argmin` are a plain model of how the kernels find the argmin:
+candidate scores from three TF32 products on the tensor cores, a window
+that certainly holds the exact score, and an exact recheck of the few
+candidates the window leaves.  Only the tests use them.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ def pairwise_sq_dists_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def centroid_norms_ref(c: torch.Tensor) -> torch.Tensor:
-    """||c_j||^2 summed in feature order, (k,) f32."""
+    """||c_j||^2 of every row, summed in feature order, (k,) f32 (the
+    kernels sum point norms the same way)."""
     c = c.float()
     norms = torch.zeros(c.shape[0], dtype=torch.float32, device=c.device)
     for f in range(c.shape[1]):
@@ -42,12 +49,23 @@ def centroid_norms_ref(c: torch.Tensor) -> torch.Tensor:
     return norms
 
 
+def _exact_scores(xr: torch.Tensor, c: torch.Tensor,
+                  cnorm: torch.Tensor) -> torch.Tensor:
+    """(rows, k) scores ||c||^2 - 2 x.c, the products summed in feature
+    order with no fused multiply-add (the kernels' exact arithmetic)."""
+    cross = torch.zeros((xr.shape[0], c.shape[0]), dtype=torch.float32,
+                        device=xr.device)
+    for f in range(xr.shape[1]):
+        cross = cross + xr[:, f:f + 1] * c[None, :, f]
+    return cnorm[None, :] - 2.0 * cross
+
+
 def assign_scores_ref(x: torch.Tensor, c: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(argmin int32 (n,), min score f32 (n,)) of ||c||^2 - 2 x.c.
 
     Ties go to the lowest centroid index (``torch.argmin`` returns the
-    first minimum).
+    first minimum; a NaN score counts as the minimum).
     """
     x = x.float()
     c = c.float()
@@ -58,12 +76,7 @@ def assign_scores_ref(x: torch.Tensor, c: torch.Tensor
     score = torch.empty(n, dtype=torch.float32, device=x.device)
     rows = max(1, _CHUNK_ELEMS // max(k, 1))
     for r0 in range(0, n, rows):
-        xr = x[r0:r0 + rows]
-        cross = torch.zeros((xr.shape[0], k), dtype=torch.float32,
-                            device=x.device)
-        for f in range(d):
-            cross = cross + xr[:, f:f + 1] * c[None, :, f]
-        s = cnorm[None, :] - 2.0 * cross
+        s = _exact_scores(x[r0:r0 + rows], c, cnorm)
         arg = torch.argmin(s, dim=1)
         idx[r0:r0 + rows] = arg.to(torch.int32)
         score[r0:r0 + rows] = s.gather(1, arg[:, None])[:, 0]
@@ -73,8 +86,7 @@ def assign_scores_ref(x: torch.Tensor, c: torch.Tensor
 def add_point_norms(x: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
     """Squared distance from the score: + ||x||^2, clamped at 0 (the
     decomposition cancels catastrophically when a point sits on a centroid)."""
-    xf = x.float()
-    return torch.clamp_min(score + (xf * xf).sum(1), 0.0)
+    return torch.clamp_min(score + centroid_norms_ref(x), 0.0)
 
 
 def assign_clusters_ref(x: torch.Tensor, c: torch.Tensor
@@ -110,3 +122,117 @@ def fused_masked_assign_update_ref(x: torch.Tensor, c: torch.Tensor,
         sums += onehot.T @ x[r0:r0 + rows]
         counts += onehot.sum(0)
     return idx, sums, counts, inertia
+
+
+# --- a plain model of the kernels' search (tests only) ---------------------
+
+# The window's terms (csrc/assign_common.cuh derives them), one window per
+# point: E = alpha(d) ||x|| cmax + 2^-21 (cnmax + 2 ||x|| cmax)
+# + 2^-100 (||x|| + cmax + 1), cmax = max ||c||, cnmax = max ||c||^2; a
+# point whose ||x|| cmax is not below 2^100 (or not finite) rechecks every
+# centroid.
+WINDOW_REL = 2.0 ** -21
+WINDOW_ABS = 2.0 ** -100
+WINDOW_GUARD = 2.0 ** 100
+
+
+def window_alpha(d: int) -> float:
+    """alpha(d) = (d + 64 ceil(d / 8) + 12) 2^-21."""
+    return (d + 64 * (-(-d // 8)) + 12) * 2.0 ** -21
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 to its 10 leading mantissa bits, to the
+    nearest with ties away from zero, on the int32 view (still fp32)."""
+    v = v.float()
+    bits = v.view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(v), r, v)
+
+
+def _truncate(v: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
+    """v cut toward zero to a multiple of unit (float64, exact)."""
+    return torch.trunc(v / unit) * unit
+
+
+def _mma_step(acc: torch.Tensor, products: torch.Tensor) -> torch.Tensor:
+    """One k8 step of the tensor cores' fp32 accumulation, as the kernels'
+    window models it: acc (n, k) and the 8 exact products (n, k, 8) are
+    aligned to the largest addend's exponent e and cut to 24 bits (a
+    multiple of 2^(e - 23)), summed exactly, and the sum cut to fp32."""
+    terms = torch.cat([acc[..., None], products], dim=-1)
+    _, exp = torch.frexp(terms)  # |t| in [2^(exp-1), 2^exp)
+    exp = torch.where(terms == 0, torch.full_like(exp, -10000), exp)
+    top = exp.max(-1).values
+    one = torch.ones_like(acc)
+    total = _truncate(terms, torch.ldexp(one, top - 24)[..., None]).sum(-1)
+    _, texp = torch.frexp(total)
+    return _truncate(total, torch.ldexp(one, texp - 24))
+
+
+def tf32x3_scores(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(n, k) candidate scores ||c||^2 - 2 (x_lo.c_hi + x_hi.c_lo +
+    x_hi.c_hi), hi = tf32(v), lo = tf32(v - hi), as the kernels issue them:
+    for each 8 features the three products in that order, each a step of
+    :func:`_mma_step` (exact products, truncating fp32 accumulation), then
+    one rounding of cn - 2 cross."""
+    x, c = x.float(), c.float()
+    xh, ch = tf32_round(x), tf32_round(c)
+    xl, cl = tf32_round(x - xh), tf32_round(c - ch)
+    d = x.shape[1]
+    pad = -d % 8
+    xh, xl, ch, cl = (torch.nn.functional.pad(t.double(), (0, pad))
+                      for t in (xh, xl, ch, cl))
+    cross = torch.zeros((x.shape[0], c.shape[0]), dtype=torch.float64)
+    for f in range(0, d + pad, 8):
+        for a, b in ((xl, ch), (xh, cl), (xh, ch)):
+            cross = _mma_step(cross, a[:, None, f:f + 8] * b[None, :, f:f + 8])
+    cn = centroid_norms_ref(c).double()
+    return (cn[None, :] - 2.0 * cross).float()
+
+
+def score_window(x: torch.Tensor, c: torch.Tensor,
+                 s_approx: torch.Tensor) -> torch.Tensor:
+    """(n, k) E with |s_approx - s| <= E for the exact scores s of
+    :func:`assign_scores_ref` (the same E along each row); +inf on the rows
+    the guard sends to a full recheck."""
+    x, c = x.float(), c.float()
+    xn = centroid_norms_ref(x).double().sqrt()
+    cnorm = centroid_norms_ref(c).double()
+    cnmax = cnorm.max() if cnorm.numel() else cnorm.new_zeros(())
+    cmax = cnmax.sqrt()
+    guard = ~(xn * cmax < WINDOW_GUARD)
+    e = (window_alpha(x.shape[1]) * xn * cmax
+         + WINDOW_REL * (cnmax + 2.0 * xn * cmax)
+         + WINDOW_ABS * (xn + cmax + 1.0))
+    e = torch.where(guard, torch.full_like(e, float("inf")), e)
+    return e[:, None].expand(-1, s_approx.shape[1]).float()
+
+
+def _candidates(s_approx: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """(n, k) bool: s~_j - E_j <= min_l (s~_l + E_l), NaN counting as a
+    candidate (the kernels' test, !(lo > upper))."""
+    s, e = s_approx.double(), window.double()
+    hi = torch.where(torch.isnan(s + e), torch.full_like(s, float("inf")),
+                     s + e)
+    return ~(s - e > hi.min(1, keepdim=True).values)
+
+
+def candidates_per_point(s_approx: torch.Tensor,
+                         window: torch.Tensor) -> torch.Tensor:
+    """(n,) how many centroids the window leaves for the exact recheck."""
+    return _candidates(s_approx, window).sum(1)
+
+
+def recheck_argmin(x: torch.Tensor, c: torch.Tensor, s_approx: torch.Tensor,
+                   window: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(argmin int32 (n,), min score f32 (n,)) from approximate scores and
+    their window: the candidates' scores are recomputed exactly and the
+    first minimum among them wins.  Equals :func:`assign_scores_ref`
+    whenever |s~ - s| <= E."""
+    x, c = x.float(), c.float()
+    exact = _exact_scores(x, c, centroid_norms_ref(c))
+    masked = torch.where(_candidates(s_approx, window), exact,
+                         torch.full_like(exact, float("inf")))
+    arg = torch.argmin(masked, dim=1)
+    return arg.to(torch.int32), exact.gather(1, arg[:, None])[:, 0]

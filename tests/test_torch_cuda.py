@@ -113,6 +113,190 @@ def test_cuda_wrappers_refuse_bad_inputs(gen):
             torch.ones(64, dtype=torch.bool, device="cuda"))
 
 
+def _same_bits(a, b):
+    """Equal bits, NaN matching NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32)))
+
+
+def _near_ties(gen, d, with_non_finite=True):
+    """Points at the midpoints of centroid pairs and 1 ulp either side,
+    duplicate centroids, points equal to a centroid, random points, and
+    (last) a row holding inf and one holding NaN."""
+    c = torch.randn(24, d, generator=gen) * 3
+    c = torch.cat([c, c[:6]])                     # 24..29 duplicate 0..5
+    mid = (c[:12] + c[12:24]) / 2
+    up = torch.nextafter(mid, torch.full_like(mid, float("inf")))
+    down = torch.nextafter(mid, torch.full_like(mid, -float("inf")))
+    x = torch.cat([mid, up, down, c, c[:6] + 1e-7,
+                   torch.randn(300, d, generator=gen) * 3])
+    if with_non_finite:
+        bad = torch.randn(2, d, generator=gen)
+        bad[0, d // 2] = float("inf")
+        bad[1, 0] = float("nan")
+        x = torch.cat([x, bad])
+    return x.contiguous().cuda(), c.contiguous().cuda()
+
+
+@pytest.mark.parametrize("d", [1, 5, 32, 64])
+def test_assign_kernel_near_ties_are_bit_exact(gen, d):
+    x, c = _near_ties(gen, d)
+    for with_dists in (False, True):
+        idx, out = dops.assign_clusters(x, c, with_dists=with_dists)
+        ridx, rscore = dref.assign_scores_ref(x, c)
+        rout = dref.add_point_norms(x, rscore) if with_dists else rscore
+        torch.cuda.synchronize()
+        assert torch.equal(idx, ridx)
+        assert _same_bits(out, rout)
+    # a centroid holding inf or NaN: every point rechecks it exactly
+    cbad = c.clone()
+    cbad[3, 0] = float("inf")
+    cbad[7, d - 1] = float("nan")
+    idx, score = dops.assign_clusters(x, cbad, with_dists=False)
+    ridx, rscore = dref.assign_scores_ref(x, cbad)
+    assert torch.equal(idx, ridx) and _same_bits(score, rscore)
+
+
+@pytest.mark.parametrize("d", [1, 5, 32, 64])
+def test_fused_kernel_near_ties_match_twin(gen, d):
+    x, c = _near_ties(gen, d)
+    n = x.shape[0]
+    finite = torch.isfinite(x).all(1)
+    mask = finite & (torch.arange(n, device="cuda") % 5 != 0)
+    idx, sums, counts, inertia = fops.fused_masked_assign_update(x, c, mask)
+    ridx, _, rcounts, rinert = dref.fused_masked_assign_update_ref(x, c, mask)
+    aidx, _ = dops.assign_clusters(x, c)
+    # the plain version's one-hot product multiplies the masked-out inf and
+    # NaN rows by 0 (NaN): its sums are taken over the finite rows alone
+    _, rsums, _, _ = dref.fused_masked_assign_update_ref(
+        x[finite], c, mask[finite])
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(idx, aidx)
+    assert torch.equal(counts, rcounts)
+    assert torch.allclose(sums, rsums, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
+    again = fops.fused_masked_assign_update(x, c, mask)
+    for a, b in zip((idx, sums, counts, inertia), again):
+        assert torch.equal(a, b)
+
+
+def test_assign_kernel_unaligned_rows_take_cp_async(gen):
+    # d = 32 but x starts 4 bytes past a 16-byte boundary: no TMA
+    flat = (torch.randn(1 + 5000 * 32, generator=gen) * 5).cuda()
+    x = flat[1:].view(5000, 32)
+    c = (torch.randn(64, 32, generator=gen) * 5).cuda()
+    idx, dist = dops.assign_clusters(x, c)
+    ridx, rdist = dref.assign_clusters_ref(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(dist, rdist)
+    fidx = fops.fused_masked_assign_update(
+        x, c, torch.ones(5000, dtype=torch.bool, device="cuda"))[0]
+    assert torch.equal(fidx, ridx)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_fused_kernel_sums_over_several_ranges(gen, d):
+    # 600 centroids of 96 features (staged rows: the centroids stream
+    # chunk by chunk) or 128 (wide rows: the later ranges read back the
+    # indices): the sums take several shared-memory ranges
+    n, k = 3000, 600
+    assert fops.launch_shape(n, k, d)[2] < k
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    mask = (torch.arange(n) < 2500).cuda()
+    idx, sums, counts, inertia = fops.fused_masked_assign_update(x, c, mask)
+    ridx, rsums, rcounts, rinert = dref.fused_masked_assign_update_ref(
+        x, c, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(counts, rcounts)
+    assert torch.allclose(sums, rsums, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
+
+
+# Wide rows (d > 96, the products streamed box by box): 16-byte copies
+# (1024, 1792, 164) and 4-byte ones (1561, 1751, 1815; the last two the
+# widest rows the CUDA-core kernels took in the fused step and the
+# assignment), one chunk and several, the sums over several ranges.
+@pytest.mark.parametrize("n,k,d", [(300, 64, 1024), (200, 70, 1561),
+                                   (200, 64, 1792), (150, 1, 1751),
+                                   (150, 9, 1815), (1000, 130, 164),
+                                   (4100, 33, 161)])
+def test_wide_rows_are_bit_exact(gen, n, k, d):
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    c[k // 2] = c[0]                                  # a duplicate centroid
+    x[:k] = c                                         # points on centroids
+    idx, dist = dops.assign_clusters(x, c)
+    ridx, rdist = dref.assign_clusters_ref(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(dist, rdist)
+    mask = (torch.arange(n) % 4 != 1).cuda()
+    fidx, sums, counts, inertia = fops.fused_masked_assign_update(x, c, mask)
+    _, rsums, rcounts, rinert = dref.fused_masked_assign_update_ref(x, c,
+                                                                   mask)
+    torch.cuda.synchronize()
+    assert torch.equal(fidx, ridx) and torch.equal(counts, rcounts)
+    # the kernel adds a centroid's rows in row order, the plain version by
+    # a matrix product: a sum over many rows that cancels keeps only the
+    # precision of the magnitudes summed
+    onehot = (ridx[:, None] == torch.arange(k, device="cuda")) & mask[:, None]
+    scale = onehot.float().T @ x.abs()
+    assert bool(((sums - rsums).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [5, 32, 64])
+def test_wide_search_at_narrow_rows(gen, monkeypatch, d):
+    # the wide search forced onto rows of one or two boxes (fewer box
+    # steps than its ring holds), with several tiles a block
+    monkeypatch.setattr(dops, "WIDE_D", 0)
+    n, k = 70000, 40
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    assert dops.plan(n, k, d).wide and dops.plan(n, k, d).tiles_per_block > 1
+    idx, dist = dops.assign_clusters(x, c)
+    ridx, rdist = dref.assign_clusters_ref(x, c)
+    mask = (torch.arange(n) % 3 != 0).cuda()
+    fidx, _, counts, _ = fops.fused_masked_assign_update(x, c, mask)
+    _, _, rcounts, _ = dref.fused_masked_assign_update_ref(x, c, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(dist, rdist)
+    assert torch.equal(fidx, ridx) and torch.equal(counts, rcounts)
+
+
+def test_plan_bytes_match_the_library(gen):
+    # ops.py plans with its own statement of the layout; the libraries own
+    # it (csrc/assign_common.cuh, csrc/fused.cu)
+    alib, flib = dops._lib(), fops._lib()
+    for n, k, d in [(1 << 20, 64, 32), (65536, 1024, 32), (300, 70, 300),
+                    (64, 5, 300), (1, 1, 1), (3000, 600, 128), (10, 3, 900),
+                    (300, 64, 1024), (200, 70, 1561), (150, 1, 1751),
+                    (150, 9, 1815), (100, 8, 4096), (7, 3, 9), (9, 5, 161)]:
+        p = dops.plan(n, k, d)
+        assert alib.assign_smem_bytes(d, p.tm, p.nt, p.slots,
+                                      int(p.wide)) == dops.assign_bytes(d, p)
+        assert 4 * alib.centroid_pack_floats(k, d, p.nt) == (
+            -(-k // (8 * p.nt)) * dops.chunk_bytes(d, p.nt))
+        fp, acc_k = fops._plan(n, k, d)
+        assert flib.fused_smem_bytes(d, fp.tm, fp.nt, fp.slots,
+                                     int(fp.wide), acc_k) == dops.fused_bytes(
+                                         d, fp, acc_k)
+
+
+def test_recheck_counts(gen):
+    x = (torch.randn(4096, 32, generator=gen) * 3).cuda()
+    c = (torch.randn(64, 32, generator=gen) * 3).cuda()
+    dops.assign_clusters(x, c)
+    total, most = dops.rechecks(dops.assign_clusters)
+    # every point rechecks its winner; few need a second candidate
+    assert 4096 <= total < 2 * 4096 and 1 <= most <= 64
+    fops.fused_masked_assign_update(
+        x, c, torch.ones(4096, dtype=torch.bool, device="cuda"))
+    assert dops.rechecks(fops.fused_masked_assign_update) == (total, most)
+
+
 # flash attention: the reference's tolerances (tests/test_parallel.py)
 ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 

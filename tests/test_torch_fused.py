@@ -17,7 +17,7 @@ from repro.kernels.distance.fused import (
     fused_masked_assign_update as jax_fused,
 )
 from repro_torch.core import kmeans
-from repro_torch.kernels.distance import fused
+from repro_torch.kernels.distance import fused, ops
 from repro_torch.kernels.distance.ref import fused_masked_assign_update_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -147,13 +147,69 @@ def test_wrapper_checks_inputs():
 
 
 def test_launch_shape_bounds_the_partials():
-    # the service shape: ~1M rows, 64 clusters of 32 features
+    # the service shape: ~1M rows, 64 clusters of 32 features, tiles of 128
     tpb, blocks, acc_k = fused.launch_shape(1 << 20, 64, 32)
     assert blocks <= 1024 and tpb * blocks * 128 >= 1 << 20
     assert acc_k == 64
-    # large k: the sums take several shared-memory ranges, partials stay
-    # under 2^24 floats
+    # large k: the sums of all 1024 centroids fit one shared-memory range,
+    # partials stay under 2^24 floats
     tpb, blocks, acc_k = fused.launch_shape(65536, 1024, 32)
     assert blocks * (1024 * 32 + 1024 + 1) <= 1 << 24
-    assert acc_k == 256
+    assert acc_k == 1024
+    # wide rows: smaller tiles, and the sums take several ranges
+    p = ops.plan(3000, 600, 128)
+    tpb, blocks, acc_k = fused.launch_shape(3000, 600, 128)
+    assert p.tm == 64 and tpb * blocks * p.tm >= 3000
+    assert 1 <= acc_k < 600
     assert fused.launch_shape(5, 8, 2) == (1, 1, 8)
+
+
+@pytest.mark.parametrize("n,k,d", [(1 << 20, 64, 32), (65536, 1024, 32),
+                                   (300, 70, 300), (64, 5, 300), (1, 1, 1),
+                                   (3000, 600, 128), (10, 3, 900),
+                                   (4096, 64, 1024), (300, 70, 1561),
+                                   (300, 1, 1751), (300, 64, 1815),
+                                   (100, 8, 4096)])
+def test_search_plan_fits_a_block(n, k, d):
+    # the ring, the chunk slots and the fused step's sums fit 227 KB
+    for p in (ops.plan(n, k, d), fused._plan(n, k, d)[0]):
+        assert p.tm % 16 == 0 and 16 <= p.tm <= 128 and p.nt in (1, 2, 4, 8)
+        assert p.wide == (d > ops.WIDE_D)
+        if p.wide:  # 64-point tiles, chunks of up to 64 centroids streamed
+            assert p.tm == 64 and not p.resident
+            assert p.nt == 8 or 8 * p.nt >= k
+        else:
+            assert p.slots == (-(-k // (8 * p.nt)) if p.resident else 1)
+        assert p.blocks * p.tiles_per_block * p.tm >= n
+        assert (p.blocks - 1) * p.tiles_per_block * p.tm < n
+    assert ops.assign_bytes(d, ops.plan(n, k, d)) <= ops.MAX_SMEM
+    fp, acc_k = fused._plan(n, k, d)
+    assert 1 <= acc_k <= k
+    assert ops.fused_bytes(d, fp, acc_k) <= ops.MAX_SMEM
+    # the bytes are the sum of the parts: 1 KB of alignment slack, the
+    # ring (of whole tiles, or of box steps), the chunk slots, the fused
+    # step's arrays, two mbarriers
+    ring = (4 * (64 + 16 * fp.nt) * 128 if fp.wide
+            else 2 * ops.boxes(d) * fp.tm * 128)
+    parts = (1024 + ring + fp.slots * ops.chunk_bytes(d, fp.nt)
+             + 4 * (acc_k * (d + 1) + 3 * fp.tm) + 16)
+    assert parts <= ops.fused_bytes(d, fp, acc_k) <= parts + 4
+
+
+def test_search_plan_keeps_the_widest_rows():
+    # the CUDA-core kernels these replaced took rows of up to 1815
+    # features (assignment) and 1751 (fused step, k = 1; 1561 for k >= 5);
+    # every width up to there and well past it gets a plan that fits, and
+    # the fused step keeps the sums of several centroids at a time
+    for d in range(1, 4097):
+        for k in (1, 64):
+            p = ops.plan(4096, k, d)
+            assert ops.assign_bytes(d, p) <= ops.MAX_SMEM, (d, k)
+            fp, acc_k = fused._plan(4096, k, d)
+            assert ops.fused_bytes(d, fp, acc_k) <= ops.MAX_SMEM, (d, k)
+            assert acc_k >= min(k, 8), (d, k)
+    # the main path's shapes keep whole rows, 128-point tiles and chunks
+    # of 64 centroids
+    for n, k, d in ((1 << 20, 64, 32), (65536, 1024, 32)):
+        p = ops.plan(n, k, d)
+        assert (p.wide, p.tm, p.nt) == (False, 128, 8)
