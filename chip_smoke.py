@@ -16,9 +16,14 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    the same shape with the last 25% of rows masked, and at k = 1024,
    n = 65536 (indices equal to the plain version's and to the assignment
    kernel's, counts exact, sums and inertia within 1e-4 relative, two
-   launches bitwise equal); eps-degree and expansion at n = 65536, d = 4,
-   eps = 2 with a ~5% frontier (exact; a differing degree must be explained
-   by a pair within 1e-5 * eps^2 of the boundary in float64); flash
+   launches bitwise equal); eps-degree and expansion with a ~5% frontier
+   at the one-job path's n = 65536 (d = 4, eps = 2), at the service's
+   shape (its first DBSCAN request padded to the bucket, n = 16384, with
+   the far-diagonal pads) and at n = 2048: both equal to the plain
+   versions (torch.equal), two launches bitwise equal, each timed beside
+   its plain version and a composed cdist yardstick, the exact rechecks
+   per pair scored, the host time a call and (profiler) the device time
+   a call logged; flash
    attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
    bf16, causal), GLM4-9B's (B 1, S 4096, 32 heads on 2 KV heads) and
    MiniCPM-2B's width (B 2, S 2048, 36 heads of 64) and three more (odd
@@ -33,8 +38,9 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    attention), and the "simt" kernel on the OLMo-1B row's bf16 inputs
    beside the "tc" one, held to the same two bounds.  The build step logs
    the ``HGMMA``, ``HMMA`` and ``UTMALDG`` instructions in the SASS of the
-   flash, assignment and fused libraries and fails without tensor-core
-   instructions (``HGMMA`` for flash).  The assignment and fused kernels are
+   flash, assignment, fused and neighbour libraries and fails without
+   tensor-core instructions (``HGMMA`` for flash and the neighbour
+   kernels).  The assignment and fused kernels are
    also held to their plain versions at near-ties (points at the midpoints
    of centroid pairs and 1 ulp either side, duplicate centroids, points on
    centroids, an inf row and a NaN row) at d = 32 and d = 5: indices and
@@ -184,6 +190,18 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host microseconds a call, the calls queued without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def timed_wall(torch, fn) -> float:
     """Host wall seconds of ``fn`` up to a device synchronise."""
     torch.cuda.synchronize()
@@ -210,7 +228,7 @@ def card_line() -> str:
 # in each library's SASS, and those of which the build needs at least one.
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
 SASS_NEEDS = {"flash_sm90": ("HGMMA",), "distance": ("HGMMA", "HMMA"),
-              "fused": ("HGMMA", "HMMA")}
+              "fused": ("HGMMA", "HMMA"), "neighbor": ("HGMMA",)}
 
 
 def build(build_mod) -> dict:
@@ -507,82 +525,159 @@ def kernel_fused(torch, mods, sass: dict) -> dict:
                 launch_shape=list(fops.launch_shape(n, k, d)))
 
 
-def explained_degree_diffs(torch, x, deg_k, deg_p, eps) -> int:
-    """Count differing points; fail unless every one is explained by pairs
-    within 1e-5 * eps^2 of the boundary (float64)."""
-    rows = torch.nonzero(deg_k != deg_p).flatten().tolist()
-    x64 = x.double()
-    e2 = float(eps) ** 2
-    for i in rows:
-        d2 = ((x64 - x64[i]) ** 2).sum(1)
-        near = int(((d2 - e2).abs() <= 1e-5 * e2).sum())
-        diff = abs(int(deg_k[i]) - int(deg_p[i]))
-        check(diff <= near, f"degree of point {i} differs by {diff} with only "
-                            f"{near} pairs near the eps boundary")
-    return len(rows)
+def _service_dbscan_item(mods):
+    """The first request of the service phase's DBSCAN workload, padded to
+    its bucket as the batch executor pads it (the far-diagonal ladder):
+    the array the service's kernels are launched on."""
+    import numpy as np
+    from repro_torch.service import executor
+    work = _svc_workload(mods["serve_mine"], "dbscan", SVC_DBSCAN, SEED + 1)
+    _t, _a, x, params = work[0]
+    n_max = 1 << (max(w[2].shape[0] for w in work) - 1).bit_length()
+    high = max(float(np.max(w[2])) for w in work)
+    return executor._pad_item(x, n_max, "dbscan", params["eps"], high), \
+        params["eps"]
 
 
-def kernel_neighbor(torch, mods) -> list:
-    nops, nref, synth = mods["nops"], mods["nref"], mods["synth"]
-    spec = spec_of(synth, DBSCAN_SHAPE)
-    x, _, _ = synth.make_blobs(SEED, spec, device=DEV)
+def _neighbor_shape(torch, mods, what, x, eps, reps) -> dict:
+    """Both neighbour kernels at one shape: equal to the plain versions
+    (torch.equal), two launches bitwise equal; kernel, plain and composed
+    library times; the exact rechecks per pair scored; the bounds."""
+    nops, nref = mods["nops"], mods["nref"]
     n, d = x.shape
-    eps = spec.dbscan_eps
-    deg = nops.epsilon_degree(x, eps)
-    rdeg = nref.epsilon_degree_ref(x, eps)
-    torch.cuda.synchronize()
-    n_diff = explained_degree_diffs(torch, x, deg, rdeg, eps)
-    log(f"degree: {n_diff} points differ from the plain version, each "
-        f"explained by pairs at the eps boundary")
-    deg_err = float((deg - rdeg).abs().max())
-    g = torch.Generator().manual_seed(SEED + 1)
+    g = torch.Generator().manual_seed(SEED + n)
     front = (torch.rand(n, generator=g) < FRONTIER_FRACTION).to(DEV)
+    nf = int(front.sum())
+    deg = nops.epsilon_degree(x, eps)
+    deg_rc = nops.rechecks(nops.epsilon_degree)
+    deg2 = nops.epsilon_degree(x, eps)
     reach = nops.expand_frontier(x, front, eps)
+    exp_rc = nops.rechecks(nops.expand_frontier)
+    reach2 = nops.expand_frontier(x, front, eps)
+    rdeg = nref.epsilon_degree_ref(x, eps)
     rreach = nref.expand_frontier_ref(x, front, eps)
     torch.cuda.synchronize()
-    mism = int((reach != rreach).sum())
-    check(mism == 0, f"expansion: {mism} rows differ from the plain version")
-    nf = int(front.sum())
-
+    check(bool(torch.equal(deg, rdeg)),
+          f"degree {what}: {int((deg != rdeg).sum())} points differ from the "
+          f"plain version")
+    check(bool(torch.equal(reach, rreach)),
+          f"expansion {what}: {int((reach != rreach).sum())} rows differ "
+          f"from the plain version")
+    check(bool(torch.equal(deg, deg2)) and bool(torch.equal(reach, reach2)),
+          f"neighbour kernels {what}: two launches differ")
     eps_t = torch.tensor(float(eps), device=DEV)
+    xf = x[front]
 
     def composed_degree():
         # cdist + threshold + row count, chunked (yardstick, never used)
         return torch.cat([(torch.cdist(x[r:r + 2048], x) <= eps_t).sum(1)
                           for r in range(0, n, 2048)])
 
-    xf = x[front]
-
     def composed_expand():
         return torch.cat([(torch.cdist(x[r:r + 8192], xf) <= eps_t).any(1)
                           for r in range(0, n, 8192)])
 
-    deg_ms = time_ms(torch, lambda: nops.epsilon_degree(x, eps), reps=10)
-    deg_plain = time_ms(torch, lambda: nref.epsilon_degree_ref(x, eps), reps=1)
-    exp_ms = time_ms(torch, lambda: nops.expand_frontier(x, front, eps),
-                     reps=20)
-    exp_plain = time_ms(torch, lambda: nref.expand_frontier_ref(x, front, eps),
-                        reps=2)
-    deg_lib = time_ms(torch, composed_degree, reps=3)
-    exp_lib = time_ms(torch, composed_expand, reps=5)
-    # 3*d fp32 operations per pair (subtract, multiply, add)
-    deg_b, deg_by = bound(n * d * 4 + n * 4, 3.0 * d * n * n)
-    exp_b, exp_by = bound(n * d * 4 + n + n, 3.0 * d * n * nf)
+    big = n >= 65536
+    t = dict(
+        # the kernels line's max_abs_err, read from the outputs compared
+        # (reach as 0 / 1)
+        deg_err=float((deg - rdeg).abs().max()),
+        exp_err=float((reach.int() - rreach.int()).abs().max()),
+        deg_host_us=host_us(torch, lambda: nops.epsilon_degree(x, eps)),
+        exp_host_us=host_us(torch,
+                            lambda: nops.expand_frontier(x, front, eps)),
+        deg_ms=time_ms(torch, lambda: nops.epsilon_degree(x, eps), reps=reps),
+        exp_ms=time_ms(torch, lambda: nops.expand_frontier(x, front, eps),
+                       reps=2 * reps),
+        deg_plain=time_ms(torch, lambda: nref.epsilon_degree_ref(x, eps),
+                          reps=1 if big else 3),
+        exp_plain=time_ms(torch, lambda: nref.expand_frontier_ref(
+            x, front, eps), reps=2 if big else 5),
+        deg_lib=time_ms(torch, composed_degree, reps=3),
+        exp_lib=time_ms(torch, composed_expand, reps=5))
+    # the packed products on the tensor cores (2 operations per
+    # multiply-add, 8 ks deep a pair); the direct form's fp32 figure beside
+    # it: 3 d un-fused operations a pair counted as FLOPs at the fp32 peak.
+    # The degree needs each unordered pair once (d2 is symmetric), the
+    # point itself included: n (n + 1) / 2 pairs.
+    depth = 8 * nref.pack_ksteps(d)
+    half = n * (n + 1) / 2
+    t["deg_bound"], t["deg_by"] = bound(n * d * 4 + n * 4,
+                                        2.0 * depth * half, PEAK_TF32)
+    t["deg_fp32"], _ = bound(n * d * 4 + n * 4, 3.0 * d * half)
+    t["exp_bound"], t["exp_by"] = bound(n * d * 4 + 2 * n,
+                                        2.0 * depth * n * nf, PEAK_TF32)
+    t["exp_fp32"], _ = bound(n * d * 4 + 2 * n, 3.0 * d * n * nf)
+    # device time of one call (the pack, gather and main kernels), from
+    # the profiler: below ~n = 16384 the event means over queued calls read
+    # the host's rate of calls instead
+    t["deg_device_ms"] = profile_window(
+        torch, f"degree {what}", lambda: nops.epsilon_degree(x, eps))[
+            "busy_ms"]
+    t["exp_device_ms"] = profile_window(
+        torch, f"expansion {what}",
+        lambda: nops.expand_frontier(x, front, eps))["busy_ms"]
+    t["deg_rechecks"] = dict(rechecks=deg_rc[0], pairs=deg_rc[1],
+                             per_pair=deg_rc[0] / max(deg_rc[1], 1))
+    t["exp_rechecks"] = dict(rechecks=exp_rc[0], pairs=exp_rc[1],
+                             per_pair=exp_rc[0] / max(exp_rc[1], 1))
+    t.update(shape=f"{what}: n={n} d={d} eps={eps}", frontier=nf,
+             plan_degree=list(nops.plan(n, d)),
+             plan_expand=list(nops.plan(n, d, True)))
+    log(f"neighbour {t['shape']}: degree and expansion (frontier {nf}) "
+        f"equal to the plain versions, two launches bitwise equal; degree "
+        f"{t['deg_ms']:.4f} ms (plain {t['deg_plain']:.3f}, composed "
+        f"{t['deg_lib']:.3f}, bound {t['deg_bound']:.4f}), expansion "
+        f"{t['exp_ms']:.4f} ms (plain {t['exp_plain']:.3f}, composed "
+        f"{t['exp_lib']:.3f}, bound {t['exp_bound']:.4f}); rechecks per "
+        f"pair: degree {t['deg_rechecks']['per_pair']!r} "
+        f"({deg_rc[0]} of {deg_rc[1]}), expansion "
+        f"{t['exp_rechecks']['per_pair']!r} ({exp_rc[0]} of {exp_rc[1]}); "
+        f"host time a call (queued, no sync): degree "
+        f"{t['deg_host_us']:.1f} us, expansion {t['exp_host_us']:.1f} us; "
+        f"device time a call (profiler): degree {t['deg_device_ms']:.4f} "
+        f"ms, expansion {t['exp_device_ms']:.4f} ms")
+    return t
+
+
+def kernel_neighbor(torch, mods, sass: dict) -> list:
+    """The neighbour kernels at the one-job path's shape (n = 65536, the
+    row in the kernels line), the service's (a padded request of the
+    service phase, n = 16384) and n = 2048."""
+    nops, synth = mods["nops"], mods["synth"]
+    # the profiler's first window pays its own set-up
+    profile_window(torch, "warm-up", lambda: torch.ones(8, device=DEV) + 1)
+    spec = spec_of(synth, DBSCAN_SHAPE)
+    x, _, _ = synth.make_blobs(SEED, spec, device=DEV)
+    eps = spec.dbscan_eps
+    one_job = _neighbor_shape(torch, mods, "one-job", x, eps, reps=10)
+    xs, seps = _service_dbscan_item(mods)
+    service = _neighbor_shape(torch, mods, "service",
+                              torch.from_numpy(xs).to(DEV), seps, reps=20)
+    small, _, _ = synth.make_blobs(SEED, synth.ClusterSpec(4, 8, 256),
+                                   device=DEV)
+    n2048 = _neighbor_shape(torch, mods, "n=2048", small, eps, reps=50)
+    shapes = [one_job, service, n2048]
     common = dict(route="cuda", source="src/repro_torch/csrc/neighbor.cu",
                   library_call="cdist + threshold + reduction, chunked "
-                               "(composed)")
+                               "(composed)", sass=sass,
+                  shapes=shapes)
     return [
         dict(name="epsilon_degree",
              replaces="src/repro/kernels/neighbor/neighbor.py:53",
-             max_abs_err=deg_err, ms=deg_ms, plain_ms=deg_plain,
-             bound_ms=deg_b, bound_by=deg_by, library_ms=deg_lib,
-             shape=f"n={n} d={d} eps={eps}",
-             **common),
+             max_abs_err=one_job["deg_err"], ms=one_job["deg_ms"],
+             plain_ms=one_job["deg_plain"], bound_ms=one_job["deg_bound"],
+             bound_by=one_job["deg_by"], library_ms=one_job["deg_lib"],
+             bound_fp32_ms=one_job["deg_fp32"], shape=one_job["shape"],
+             rechecks=one_job["deg_rechecks"], **common),
         dict(name="expand_frontier",
              replaces="src/repro/kernels/neighbor/neighbor.py:65",
-             max_abs_err=float(mism), ms=exp_ms, plain_ms=exp_plain,
-             bound_ms=exp_b, bound_by=exp_by, library_ms=exp_lib,
-             shape=f"n={n} d={d} eps={eps} frontier={nf}", **common),
+             max_abs_err=one_job["exp_err"], ms=one_job["exp_ms"],
+             plain_ms=one_job["exp_plain"], bound_ms=one_job["exp_bound"],
+             bound_by=one_job["exp_by"], library_ms=one_job["exp_lib"],
+             bound_fp32_ms=one_job["exp_fp32"],
+             shape=f"{one_job['shape']} frontier={one_job['frontier']}",
+             rechecks=one_job["exp_rechecks"], **common),
     ]
 
 
@@ -1284,7 +1379,7 @@ def main() -> int:
             rows = [kernel_assign(torch, mods, sass["distance"]),
                     kernel_fused(torch, mods, sass["fused"])]
             wide_rows(torch, mods)
-            rows += [*kernel_neighbor(torch, mods),
+            rows += [*kernel_neighbor(torch, mods, sass["neighbor"]),
                      kernel_attention(torch, mods, sass["flash_sm90"])]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
@@ -1334,6 +1429,7 @@ def main() -> int:
                         "simt_block_error": row.get("simt_block_error"),
                         "sass": row.get("sass"),
                         "rechecks": row.get("rechecks"),
+                        "shapes": row.get("shapes"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

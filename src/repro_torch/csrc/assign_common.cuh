@@ -366,6 +366,30 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[4 * kMaxNT],
   }
 }
 
+// D (64 x 64, fp32) (+)= A (64 x 8) . B (64 x 8)^T, both TF32 in shared
+// memory, K-major, 128-byte swizzle (descriptors as smem_desc); D's layout
+// as for wgmma_tf32<8>.  The neighbour kernels (neighbor.cu) keep their
+// rows in shared memory, where the search above holds A in registers.
+__device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[4 * kMaxNT],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // (s, j) comes before (bs, bj): NaN first, then the smaller score, then
 // the smaller index.
 __device__ __forceinline__ bool precedes(float s, int j, float bs, int bj) {

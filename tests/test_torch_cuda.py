@@ -5,7 +5,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(``-k flash`` for the attention kernels alone.)
+(``-k flash`` for the attention kernels alone, ``-k neighbor`` for the
+DBSCAN ones.)
 
 (``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
 """
@@ -53,17 +54,123 @@ def test_assign_kernel_ties_and_bf16(gen):
     assert torch.equal(idx, ridx) and torch.equal(dist, rdist)
 
 
-@pytest.mark.parametrize("n,d,eps", [(256, 1, 1.0), (600, 2, 1.4142135),
-                                     (1025, 4, 2.0), (129, 2, 0.5),
-                                     (3000, 9, 3.0)])
+# The neighbour kernels: the (n, d, eps) cases they had, then n = 1, 127,
+# 2048 and the one-job path's 65536 at every width class (one box: d <= 9;
+# streamed boxes: 64, 226, the widest the CUDA-core kernel took).
+NEIGHBOR_CASES = ([(256, 1, 1.0), (600, 2, 1.4142135), (1025, 4, 2.0),
+                   (129, 2, 0.5), (3000, 9, 3.0)]
+                  + [(n, d, float(d) ** 0.5) for n in (1, 127, 2048, 65536)
+                     for d in (1, 4, 8, 9, 64, 226)])
+
+
+def _neighbor_check(x, eps, gen, fronts=(0.0, 0.05, 1.0)):
+    """Degree and expansion equal to the plain versions, two launches
+    bitwise equal, one launch counted per call; the frontier empty, one
+    point, and at each fraction of ``fronts``."""
+    n = x.shape[0]
+    deg_before = nops.epsilon_degree.launches
+    deg = nops.epsilon_degree(x, eps)
+    again = nops.epsilon_degree(x, eps)
+    assert nops.epsilon_degree.launches == deg_before + 2
+    rdeg = nref.epsilon_degree_ref(x, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(deg, rdeg) and torch.equal(deg, again)
+    one = torch.zeros(n, dtype=torch.bool)
+    one[int(torch.randint(n, (1,), generator=gen))] = True
+    frontiers = [one] + [torch.rand(n, generator=gen) < p for p in fronts]
+    for f in frontiers:
+        f = f.cuda()
+        before = nops.expand_frontier.launches
+        reach = nops.expand_frontier(x, f, eps)
+        again = nops.expand_frontier(x, f, eps)
+        assert nops.expand_frontier.launches == before + 2
+        assert torch.equal(reach, nref.expand_frontier_ref(x, f, eps))
+        assert torch.equal(reach, again)
+
+
+@pytest.mark.parametrize("n,d,eps", NEIGHBOR_CASES)
 def test_neighbor_kernels_are_exact(gen, n, d, eps):
     x = (torch.randn(n, d, generator=gen) * 3).cuda()
-    assert torch.equal(nops.epsilon_degree(x, eps),
-                       nref.epsilon_degree_ref(x, eps))
-    for p in (0.0, 0.05, 1.0):
-        f = (torch.rand(n, generator=gen) < p).cuda()
-        assert torch.equal(nops.expand_frontier(x, f, eps),
-                           nref.expand_frontier_ref(x, f, eps))
+    _neighbor_check(x, eps, gen)
+
+
+@pytest.mark.parametrize("d", [1, 4, 9, 64, 226])
+def test_neighbor_kernels_special_inputs(gen, d):
+    # non-finite rows (degree 0, reach nothing), far-diagonal pads as the
+    # service writes them, exact duplicates at eps = 0, pairs at eps and
+    # one ulp either side, a row whose norm overflows fp32
+    eps = float(d) ** 0.5
+    x = torch.randn(900, d, generator=gen) * 3
+    x[5, d // 2] = float("inf")
+    x[9, 0] = float("nan")
+    x[11, -1] = -float("inf")
+    x[13] = 1e30
+    pads = torch.zeros(300, d)
+    pads[:, 0] = float(x[20:].max()) + 16 * eps * (1 + torch.arange(300))
+    dup = x[20:60].clone()
+    base = x[100:101]
+    e = float(torch.tensor(float(((x[100] - x[101]) ** 2).sum())).sqrt())
+    near = torch.cat([x[101:102], torch.nextafter(x[101:102], base + 1e3),
+                      torch.nextafter(x[101:102], base - 1e3)])
+    x = torch.cat([x, pads, dup, near]).contiguous().cuda()
+    for eps_ in (eps, 0.0, e):
+        _neighbor_check(x, eps_, gen, fronts=(0.05,))
+    deg = nops.epsilon_degree(x, eps)
+    assert int(deg[5]) == 0 and int(deg[9]) == 0 and int(deg[11]) == 0
+    assert bool((deg[900:1200] == 1).all())
+
+
+def test_neighbor_unaligned_rows(gen):
+    # x starts 4 bytes past a 16-byte boundary (a view into a larger
+    # buffer); the frontier one byte past
+    flat = (torch.randn(1 + 3000 * 3, generator=gen) * 3).cuda()
+    x = flat[1:].view(3000, 3)
+    fl = torch.rand(3001, generator=gen).cuda() < 0.1
+    f = fl[1:]
+    assert torch.equal(nops.epsilon_degree(x, 1.7),
+                       nref.epsilon_degree_ref(x, 1.7))
+    assert torch.equal(nops.expand_frontier(x, f, 1.7),
+                       nref.expand_frontier_ref(x, f, 1.7))
+
+
+@pytest.mark.parametrize("d", [1, 4, 9, 10, 64, 226])
+def test_neighbor_plan_keeps_every_width(gen, d):
+    # every width the CUDA-core kernel took (d <= 226) fits a block, with
+    # either kernel's plan, at the one-job path's n and at a small one
+    assert nops._lib().neighbor_smem_bytes(d) <= nops.MAX_SMEM
+    for n in (2048, 65536):
+        for expand in (False, True):
+            assert nops.plan(n, d, expand).groups == (2 if d <= 9 else 1)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 2048, 16384, 65536])
+def test_neighbor_plan_covers_the_points_with_enough_blocks(gen, n):
+    for expand in (False, True):
+        p = nops.plan(n, 4, expand)
+        assert p.triangle == (not expand)
+        assert p.row_groups * 64 * p.groups >= n
+        if not p.triangle:
+            assert p.slice_len % 64 == 0 and p.slices * p.slice_len >= n
+            assert (p.slices - 1) * p.slice_len < n
+        # the grid fills the card's 132 SMs wherever the columns allow
+        assert p.blocks >= min(132, -(-n // 64))
+
+
+def test_neighbor_scored_pairs(gen):
+    x = (torch.randn(4096, 4, generator=gen) * 3).cuda()
+    nops.epsilon_degree(x, 2.0)
+    total, pairs = nops.rechecks(nops.epsilon_degree)
+    # the triangle scores each pair once, and the band tiles (a row
+    # group's own columns) in full; few pairs fall inside the window
+    p = nops.plan(4096, 4)
+    band = p.row_groups * (64 * p.groups) ** 2
+    assert pairs == (4096 * 4096 - band) // 2 + band
+    assert 0 < total < pairs // 100
+    f = torch.zeros(4096, dtype=torch.bool, device="cuda")
+    f[::50] = True
+    nops.expand_frontier(x, f, 2.0)
+    total, pairs = nops.rechecks(nops.expand_frontier)
+    assert 0 < pairs <= 4096 * int(f.sum()) and total < pairs // 100
 
 
 @pytest.mark.parametrize("n,k,d,n_real", [

@@ -78,3 +78,70 @@ def test_input_checks():
         tops.expand_frontier(x, torch.zeros(19, dtype=torch.bool), 1.0)
     with pytest.raises(ValueError):
         tops.expand_frontier(x, torch.zeros(20, dtype=torch.int32), 1.0)
+
+
+def _both(x, eps, seed):
+    """(JAX degree, port degree, JAX reach, port reach) on the same input,
+    a ~20% frontier holding the first three points."""
+    f = np.random.default_rng(seed).random(x.shape[0]) < 0.2
+    f[:3] = True
+    return (np.asarray(jax_degree(jnp.asarray(x), eps)),
+            tops.epsilon_degree(torch.from_numpy(x), eps).numpy(),
+            np.asarray(jax_expand(jnp.asarray(x), jnp.asarray(f), eps)),
+            tops.expand_frontier(torch.from_numpy(x), torch.from_numpy(f),
+                                 eps).numpy())
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_non_finite_row_matches_jax_kernel(bad):
+    # a NaN or inf coordinate makes every d2 of its point NaN or inf:
+    # degree 0 (itself included), reached by nothing, reaching nothing
+    x = _points(300, 4, seed=11)
+    x[7, 1] = bad
+    jdeg, deg, jreach, reach = _both(x, 2.0, seed=1)
+    np.testing.assert_array_equal(deg, jdeg)
+    np.testing.assert_array_equal(reach, jreach)
+    assert deg[7] == 0 and not reach[7]
+
+
+def test_eps_zero_counts_duplicates_like_jax_kernel():
+    # coordinates on a quarter grid: the reference's decomposition
+    # ||a||^2 - 2 a.b + ||b||^2 is exact there too, so both count exactly
+    # the duplicates (on random coordinates it rounds some duplicates'
+    # d2 away from 0; the port's direct form never does)
+    x = np.round(_points(300, 4, seed=12) * 4) / 4
+    x = np.concatenate([x, x[:20]]).astype(np.float32)
+    jdeg, deg, jreach, reach = _both(x, 0.0, seed=2)
+    np.testing.assert_array_equal(deg, jdeg)
+    np.testing.assert_array_equal(reach, jreach)
+    assert (deg[:20] == 2).all() and (deg[300:] == 2).all()
+
+
+@pytest.mark.parametrize("pads", [60, 2000])
+def test_far_diagonal_pads_match_jax_kernel(pads):
+    # the service's padding (dispatch.far_diagonal_pad): feature 0 on a
+    # ladder 16 eps apart above the data, every pad isolated
+    x = _points(300, 4, seed=13)
+    x = np.concatenate([x, np.zeros((pads, 4), np.float32)])
+    x[300:, 0] = x[:300].max() + 16 * 2.0 * (1 + np.arange(pads))
+    jdeg, deg, jreach, reach = _both(x, 2.0, seed=3)
+    np.testing.assert_array_equal(deg, jdeg)
+    np.testing.assert_array_equal(reach, jreach)
+    assert (deg[300:] == 1).all()
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (2, 2), (63, 4), (64, 4), (65, 4),
+                                 (127, 8), (129, 9), (70, 10), (65, 64),
+                                 (33, 226), (300, 3), (257, 5), (100, 17)])
+def test_cpu_tensors_take_the_plain_version(monkeypatch, n, d):
+    # on the CPU the wrappers never reach the library (no nvcc, no card),
+    # and agree with the reference's kernels at ragged n and every width
+    # class (one box a point: d <= 9; streamed boxes beyond)
+    def no_library():
+        raise AssertionError("a CPU tensor reached the CUDA library")
+
+    monkeypatch.setattr(tops, "_lib", no_library)
+    x = _points(n, d, seed=5 * n + d)
+    jdeg, deg, jreach, reach = _both(x, float(np.sqrt(d)), seed=n)
+    np.testing.assert_array_equal(deg, jdeg)
+    np.testing.assert_array_equal(reach, jreach)
