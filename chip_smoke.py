@@ -81,6 +81,31 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    cancelled job ends SUSPENDED, and (4b) that a service batch preempted
    mid-run on the card ends SUSPENDED and resumes in a fresh service to the
    uninterrupted labels.
+4c. Slice 7's path, the durable serving tier, at the service phase's
+   widths, every worker a process of its own with its own CUDA context on
+   the one card (spawned after the build, so each loads the built
+   libraries).  First an uninterrupted single-process card service labels
+   5 K-Means requests of ~2^20 points and 1 DBSCAN request of ~16K points
+   on ``cuda-kernel``.  Fleet failover: a ``WorkerManager`` of 3 workers
+   behind a ``FleetRouter``; worker-0 admits but never batches, 3 K-Means
+   requests are durably admitted there (the ACK is its WAL fsync), 2
+   K-Means and 1 DBSCAN request go live to the survivors, and worker-0 is
+   SIGKILLed with them in flight.  No admitted request may be lost, labels
+   must equal the single-process ones per content hash, every result must
+   come from ``cuda-kernel``, the victim's tenants must re-place, its WAL
+   must drain to zero pending and the fleet ``/metrics`` exposition must
+   validate; spawn, admission and failover times and the survivors' kernel
+   launches (read from their ``/snapshot`` before and after) are printed.
+   Standby: a primary worker on the card durably admits 4 of those K-Means
+   requests while its ``WalShipper`` mirrors the WAL to a
+   ``StandbyReplica`` here; at zero lag the primary is SIGKILLed, the
+   replica's exposition must validate, and ``promote(device="cuda")``
+   must replay all 4 to the same labels and take a live reload at epoch 1.
+   Rolling restart: a 2-worker card fleet holding the 4 requests durably
+   is restarted worker by worker; labels stay equal, every pid changes, a
+   fleet-wide reload converges on one epoch before and after, and a new
+   request after the roll launches the fused kernel.  The card's peak
+   memory (every process on it) is printed for each.
 5. Launch counters are zeroed just before each path and read just after;
    every kernel of a path must have launched in it.  Prints one ``kernels``
    JSON line and, last, the device line.  Any failed check exits non-zero
@@ -92,6 +117,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -127,6 +153,19 @@ SVC_KMEANS = dict(features=32, clusters=64, points=16384, min_points=15360)
 SVC_DBSCAN = dict(features=4, clusters=8, points=2048, min_points=1792)
 SVC_REQUESTS = 8
 SVC_MAX_BATCH = 4
+# The fleet phases, at the service phase's widths: a 3-worker fleet on the
+# card (3 durable K-Means requests on the victim, 2 K-Means + 1 DBSCAN live
+# on the survivors), then a standby promoted from a SIGKILLed primary of
+# 4 durable K-Means requests, and a 2-worker fleet rolled under them.
+FLEET_WORKERS = 3
+FLEET_VICTIM = "worker-0"
+FLEET_VICTIM_REQUESTS = 3
+FLEET_LIVE_KMEANS = 2
+FLEET_LIVE_DBSCAN = 1
+FLEET_LIVE = dict(max_batch=4, max_wait_s=0.005)
+FLEET_ADMIT_ONLY = dict(max_batch=64, max_wait_s=3600.0)
+STANDBY_REQUESTS = 4
+ROLL_WORKERS = 2
 # The preemption phase: a K-Means batch that runs its full iteration count
 # (tol 0), long enough to be cancelled mid-run.
 PREEMPT_KMEANS = dict(features=32, clusters=64, points=4096)
@@ -1308,6 +1347,416 @@ def service_preemption(mods) -> None:
         f"({PREEMPT_ITERS} iterations, resume {outcomes[0].exec_s:.3f} s)")
 
 
+class CardMemory:
+    """The card's peak used memory over a window, every process on it
+    counted (free memory from ``cudaMemGetInfo``, sampled by a thread)."""
+
+    def __init__(self, torch, every_s: float = 0.1) -> None:
+        import threading
+        self.torch, self.every_s = torch, every_s
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> None:
+        free, total = self.torch.cuda.mem_get_info()
+        self.peak = max(self.peak, total - free)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every_s):
+            self._sample()
+
+    def __enter__(self) -> "CardMemory":
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *_exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self._sample()
+
+
+def _timed_results(waits) -> list:
+    """Each wait's result and the wall clock when it came back, waited on
+    together (a fleet handle's fetch blocks in its own thread)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(wait):
+        out = wait(900)
+        return out, time.time()
+
+    with ThreadPoolExecutor(max_workers=max(1, len(waits))) as pool:
+        return list(pool.map(one, waits))
+
+
+def _kernel_launches(router) -> dict:
+    """Each live worker's kernel launch counters (its own process's, from
+    its ``/snapshot``)."""
+    return {name: snap["kernel_launches"]
+            for name, snap in router.metrics_snapshot()["workers"].items()}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    """Launches per kernel between two readings, summed over the workers
+    alive at both; a worker is read just before the phase drives it."""
+    out: dict = {}
+    for name, counts in after.items():
+        base = before.get(name, {k: 0 for k in counts})
+        for kernel, n in counts.items():
+            out[kernel] = out.get(kernel, 0) + n - base[kernel]
+    return out
+
+
+def _scrape(port: int) -> str:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        return resp.read().decode("utf-8")
+
+
+def _fleet_config(warm) -> dict:
+    return dict(device=DEV, continuous=True, bucket_policy="pow2",
+                warm_start=warm, **FLEET_LIVE)
+
+
+def fleet_reference(mods) -> tuple:
+    """The fleet phases' requests and their labels per content hash from an
+    uninterrupted single-process service on the card (``cuda-kernel``)."""
+    serve_mine, service = mods["serve_mine"], mods["service"]
+    n_km = FLEET_VICTIM_REQUESTS + FLEET_LIVE_KMEANS
+    km = _svc_workload(serve_mine, "kmeans", SVC_KMEANS, SEED + 11,
+                       requests=n_km)
+    db = _svc_workload(serve_mine, "dbscan", SVC_DBSCAN, SEED + 12,
+                       requests=FLEET_LIVE_DBSCAN)
+    work = km + db
+    n_max = max(w[2].shape[0] for w in km)
+    warm = [{"algo": "kmeans", "features": SVC_KMEANS["features"],
+             "n": n_max, "k": SVC_KMEANS["clusters"], "max_iters": 50,
+             "executor": "cuda-kernel"}]
+    svc = _svc(mods, workdir(mods, "fleet_ref_"), warm_start=warm)
+    svc.start()
+    try:
+        results, wall = _drive(mods, svc, work, "cuda-kernel")
+    finally:
+        svc.stop()
+    ref = {service.content_key(a, p, x): r["labels"]
+           for (_t, a, x, p), r in zip(work, results)}
+    log(f"fleet reference: {len(work)} requests on one card service in "
+        f"{wall:.3f} s (K-Means sizes {[w[2].shape[0] for w in km]}, "
+        f"DBSCAN sizes {[w[2].shape[0] for w in db]})")
+    return work, ref, warm
+
+
+def fleet_failover(torch, mods, work, ref, warm) -> dict:
+    """Phase A: a 3-worker fleet on the card loses a worker that holds
+    durably admitted requests; a survivor adopts its WAL and every admitted
+    request resolves to the single-process labels, on ``cuda-kernel``."""
+    service = mods["service"]
+    km = [w for w in work if w[1] == "kmeans"]
+    db = [w for w in work if w[1] == "dbscan"]
+    victim_work = km[:FLEET_VICTIM_REQUESTS]
+    live_work = km[FLEET_VICTIM_REQUESTS:] + db
+    root = workdir(mods, "fleet_")
+    manager = service.WorkerManager(
+        root, FLEET_WORKERS, worker_config=_fleet_config(warm),
+        overrides={FLEET_VICTIM: dict(FLEET_ADMIT_ONLY)},
+        heartbeat_interval=0.25)
+    t0 = time.time()
+    with CardMemory(torch) as mem:
+        try:
+            manager.start()
+            spawn = {n: round(w.spawn_s, 3)
+                     for n, w in manager.workers.items()}
+            log(f"fleet: {FLEET_WORKERS} workers on the card in "
+                f"{time.time() - t0:.3f} s, spawn (Popen to announce) "
+                f"{spawn} s, spawn_timeout {manager.spawn_timeout:.0f} s; "
+                f"seconds from Popen to the end of each start-up phase "
+                + json.dumps({n: {k: round(v, 3) for k, v in
+                                  w.startup.items()}
+                              for n, w in manager.workers.items()}))
+            router = service.FleetRouter(manager)
+            exporter = router.serve_metrics(0)
+            try:
+                out = _fleet_drive(mods, manager, router, exporter,
+                                   victim_work, live_work, ref)
+            finally:
+                exporter.stop()
+                router.close()
+        finally:
+            manager.stop()
+    log(f"fleet failover phase: {time.time() - t0:.3f} s wall, card memory "
+        f"peak {mem.peak / 2**30:.3f} GiB (every process on the card)")
+    return dict(out, spawn_s=spawn, peak_gib=mem.peak / 2**30)
+
+
+def _fleet_drive(mods, manager, router, exporter, victim_work, live_work,
+                 ref) -> dict:
+    import numpy as np
+
+    service = mods["service"]
+    tenants = [f"tenant-{i}" for i in range(400)]
+    victim_tenants = [t for t in tenants
+                      if router.ring.primary(t) == FLEET_VICTIM]
+    live_tenants = [t for t in tenants
+                    if router.ring.primary(t) != FLEET_VICTIM]
+    before = _kernel_launches(router)
+    t_wall = time.time()
+    # durable admits on the victim, one after another (so bounded load
+    # never spills them off their idle primary): the ACK is the WAL fsync
+    victim, admit_s = [], []
+    for tenant, (_t, algo, x, params) in zip(victim_tenants, victim_work):
+        t0 = time.time()
+        h = router.submit(tenant, algo, x, params=params,
+                          executor="cuda-kernel", durable=True)
+        ack = h.admitted(600)
+        admit_s.append(round(time.time() - t0, 3))
+        check(ack["worker"] == FLEET_VICTIM,
+              f"fleet: a victim request was admitted at {ack['worker']}")
+        victim.append(h)
+    log(f"fleet: {len(victim)} durable K-Means requests admitted at "
+        f"{FLEET_VICTIM} (RPC + WAL fsync, ~"
+        f"{victim_work[0][2].nbytes / 2**20:.0f} MiB each): {admit_s} s")
+    live = [router.submit(t, algo, x, params=params, executor="cuda-kernel")
+            for t, (_t, algo, x, params) in zip(live_tenants, live_work)]
+    t_kill = time.time()
+    manager.fail_worker(FLEET_VICTIM)      # SIGKILL + synchronous takeover
+    takeover = manager.takeovers[0] if manager.takeovers else {}
+    log(f"fleet: SIGKILL {FLEET_VICTIM} with {len(live)} live requests in "
+        f"flight; takeover {time.time() - t_kill:.3f} s: "
+        + json.dumps({k: takeover.get(k) for k in
+                      ("victim", "adopter", "replayed", "cache_hits",
+                       "rejected", "pending_after", "error")}))
+    done = _timed_results([h.result for h in victim + live])
+    wall = time.time() - t_wall
+    failover_s = max(t for _r, t in done[:len(victim)]) - t_kill
+    lost = mismatched = 0
+    for (_t, algo, x, params), (r, _ts) in zip(victim_work + live_work, done):
+        key = service.content_key(algo, params, x)
+        check(r["executor"] == "cuda-kernel",
+              f"fleet: a request resolved on {r['executor']}")
+        if r.get("labels") is None:
+            lost += 1
+        elif not np.array_equal(r["labels"], ref[key]):
+            mismatched += 1
+    check(lost == 0, f"fleet: {lost} admitted request(s) lost")
+    check(mismatched == 0,
+          f"fleet: {mismatched} request(s) differ from the single-process "
+          f"labels")
+    check(int(takeover.get("replayed", 0)) >= len(victim),
+          f"fleet: takeover replayed {takeover.get('replayed')} of "
+          f"{len(victim)} admitted at the victim")
+    replaced = {t: router.place(t) for t in victim_tenants[:len(victim)]}
+    check(all(w != FLEET_VICTIM for w in replaced.values()),
+          f"fleet: victim tenants not re-placed: {replaced}")
+    wal = service.RequestLog(os.path.join(manager.root, FLEET_VICTIM, "wal"))
+    pending = wal.pending()
+    wal.close()
+    check(pending == 0, f"fleet: victim WAL has {pending} pending admits")
+    text = _scrape(exporter.port)
+    errors = service.exposition_errors(text)
+    check(not errors, f"fleet exposition: {errors}")
+    for needle in (f'repro_fleet_worker_up{{worker="{FLEET_VICTIM}"}} 0.0',
+                   'repro_fleet_worker_up{worker="worker-1"} 1.0',
+                   'repro_fleet_worker_up{worker="worker-2"} 1.0',
+                   'repro_fleet_worker_requests_total{worker="',
+                   "repro_fleet_takeover_replayed_total{",
+                   "repro_fleet_takeovers_total 1"):
+        check(needle in text, f"fleet exposition lacks {needle}")
+    snap = router.metrics_snapshot()
+    per_worker = {n: (ws.get("totals") or {}).get("requests", 0)
+                  for n, ws in snap["workers"].items()}
+    launches = _launch_delta(before, _kernel_launches(router))
+    for kernel in ("fused_masked_assign_update", "epsilon_degree",
+                   "expand_frontier"):
+        check(launches.get(kernel, 0) >= 1,
+              f"fleet: no {kernel} launch in the survivors")
+    log(f"fleet failover: wall {wall:.3f} s, failover (SIGKILL to the last "
+        f"adopted result) {failover_s:.3f} s, lost {lost}, mismatched "
+        f"{mismatched}, all on cuda-kernel, requests per worker "
+        f"{per_worker}, victim tenants re-placed {replaced}, victim WAL "
+        f"pending {pending}, exposition {len(text)} bytes valid; "
+        f"survivors' launches {launches}")
+    return dict(launches=launches, admit_s=admit_s, failover_s=failover_s)
+
+
+def standby_promotion(torch, mods, counters, work, ref, warm) -> dict:
+    """Phase B, first half: a primary worker process on the card admits
+    durable K-Means requests while a WalShipper mirrors its WAL to a
+    StandbyReplica hosted here; at zero lag the primary is SIGKILLed and
+    the standby promoted on the card."""
+    import numpy as np
+
+    service = mods["service"]
+    km = [w for w in work if w[1] == "kmeans"][:STANDBY_REQUESTS]
+    standby = service.StandbyReplica(workdir(mods, "standby_")).start()
+    manager = service.WorkerManager(
+        workdir(mods, "primary_"), 1,
+        worker_config=dict(_fleet_config(warm), **FLEET_ADMIT_ONLY),
+        standbys={"worker-0": f"127.0.0.1:{standby.port}"})
+    out = {}
+    with CardMemory(torch) as mem:
+        try:
+            manager.start()
+            log(f"standby: primary worker on the card, spawn "
+                f"{manager.workers['worker-0'].spawn_s:.3f} s")
+            router = service.FleetRouter(manager)
+            t_ship = time.time()
+            admit_s = []
+            try:
+                for tenant, algo, x, params in km:
+                    t0 = time.time()
+                    router.submit(tenant, algo, x, params=params,
+                                  executor="cuda-kernel",
+                                  durable=True).admitted(600)
+                    admit_s.append(round(time.time() - t0, 3))
+            finally:
+                router.close()
+            t_admitted = time.time()
+            deadline = t_admitted + 600
+            while time.time() < deadline:
+                snap = standby.stats()
+                if (snap["pending_entries"] >= len(km)
+                        and snap["lag_entries"] == 0):
+                    break
+                time.sleep(0.05)
+            t_caught = time.time()
+            snap = standby.stats()
+            lag = snap["lag_entries"]
+            manager.fail_worker("worker-0")      # SIGKILL: the machine is lost
+        finally:
+            manager.stop(drain=False)
+        check(lag == 0 and snap["pending_entries"] >= len(km),
+              f"standby: lag {lag} entries, {snap['pending_entries']} pending "
+              f"before the kill")
+        log(f"standby: {len(km)} durable requests admitted in {admit_s} s; "
+            f"{snap['bytes_applied']} bytes shipped in {snap['applies']} "
+            f"chunks, zero lag {t_caught - t_admitted:.3f} s after the last "
+            f"ACK ({t_caught - t_ship:.3f} s from the first submit); lag at "
+            f"the kill {lag} entries")
+        text = _scrape(standby.port)
+        errors = service.exposition_errors(text)
+        check(not errors, f"replica exposition: {errors}")
+        for needle in ("repro_replica_lag_entries",
+                       "repro_replica_pending_entries",
+                       "repro_replica_applies_total", "repro_replica_ok 1"):
+            check(needle in text, f"replica exposition lacks {needle}")
+        reset(counters)
+        t0 = time.time()
+        svc, summary = standby.promote(
+            device=DEV, max_batch=SVC_MAX_BATCH, max_wait_s=0.005,
+            continuous=True, bucket_policy="pow2", warm_start=warm)
+        try:
+            done = _timed_results([r.wait for r in summary["requests"]])
+            first = min(t for _r, t in done) - t0
+            launches = {k: counters[k].launches
+                        for k in ("fused_masked_assign_update",)}
+            check(summary["replayed"] == len(km),
+                  f"standby: promote replayed {summary['replayed']} of "
+                  f"{len(km)}")
+            for req, (r, _t) in zip(summary["requests"], done):
+                check(r["executor"] == "cuda-kernel",
+                      f"standby: a request resolved on {r['executor']}")
+                check(bool(np.array_equal(r["labels"], ref[req.cache_key])),
+                      "standby: promoted labels differ from the "
+                      "single-process labels")
+            check(launches["fused_masked_assign_update"] >= 1,
+                  "standby: the promoted service launched no fused kernel")
+            pending = svc.wal.pending()
+            check(pending == 0, f"standby: promoted WAL has {pending} "
+                                f"pending admits")
+            svc.apply_config({"tenant_rate": 50.0})
+            msnap = svc.metrics_snapshot()
+            check(msnap["config"]["epoch"] == 1,
+                  f"standby: config epoch {msnap['config']['epoch']} after "
+                  f"a reload")
+            check("repro_config_epoch 1" in
+                  service.render_prometheus(msnap),
+                  "standby: the exposition lacks repro_config_epoch 1")
+        finally:
+            svc.stop(drain=True)
+    out.update(launches=launches, promote_s=round(time.time() - t0, 3),
+               first_result_s=first, admit_s=admit_s,
+               bytes_shipped=snap["bytes_applied"])
+    log(f"standby promoted on the card: {summary['replayed']} replayed, "
+        f"first result {first:.3f} s after promote(), labels equal, all on "
+        f"cuda-kernel, launches {launches}, reload epoch 1; card memory "
+        f"peak {mem.peak / 2**30:.3f} GiB")
+    return out
+
+
+def rolling_restart(torch, mods, work, ref, warm) -> dict:
+    """Phase B, second half: a 2-worker fleet on the card restarted one
+    worker at a time under durable load, with a fleet-wide reload."""
+    import numpy as np
+
+    service = mods["service"]
+    km = [w for w in work if w[1] == "kmeans"][:STANDBY_REQUESTS]
+    manager = service.WorkerManager(
+        workdir(mods, "roll_"), ROLL_WORKERS,
+        worker_config=_fleet_config(warm), heartbeat_interval=0.25)
+    with CardMemory(torch) as mem:
+        router = None
+        try:
+            manager.start()
+            router = service.FleetRouter(manager)
+            first = router.reload({"tenant_rate": 77.0})
+            check(first["converged"]
+                  and set(first["epochs"].values()) == {1},
+                  f"roll: fleet reload {first}")
+            pids = {n: w.pid for n, w in manager.workers.items()}
+            handles = [router.submit(t, a, x, params=p,
+                                     executor="cuda-kernel", durable=True)
+                       for t, a, x, p in km]
+            for h in handles:
+                h.admitted(600)
+            t0 = time.time()
+            restarts = manager.rolling_restart(drain_timeout=600.0)
+            roll_s = time.time() - t0
+            mismatched = 0
+            for (_t, a, x, p), h in zip(km, handles):
+                r = h.result(900)
+                check(r["executor"] == "cuda-kernel",
+                      f"roll: a request resolved on {r['executor']}")
+                if not np.array_equal(r["labels"],
+                                      ref[service.content_key(a, p, x)]):
+                    mismatched += 1
+            check(mismatched == 0, f"roll: {mismatched} request(s) differ "
+                                   f"from the single-process labels")
+            new = {n: w.pid for n, w in manager.workers.items()}
+            check(all(new[n] != pids[n] for n in pids)
+                  and len(restarts) == ROLL_WORKERS,
+                  f"roll: pids {pids} -> {new}")
+            again = router.reload({"tenant_rate": 77.0})
+            check(again["converged"]
+                  and len(set(again["epochs"].values())) == 1
+                  and len(again["epochs"]) == ROLL_WORKERS,
+                  f"roll: fleet reload after the roll {again}")
+            # the restarted fleet serves: one new request, its launches
+            # read from the successors just before and just after
+            before = _kernel_launches(router)
+            t, a, x, p = km[0]
+            post = router.submit(t, a, x, params=dict(p, seed=9999),
+                                 executor="cuda-kernel").result(900)
+            check(post["executor"] == "cuda-kernel",
+                  "roll: the restarted fleet did not serve on cuda-kernel")
+            launches = _launch_delta(before, _kernel_launches(router))
+            check(launches["fused_masked_assign_update"] >= 1,
+                  "roll: the successors launched no fused kernel")
+        finally:
+            if router is not None:
+                router.close()
+            manager.stop()
+    times = {r["worker"]: round(r["duration_s"], 3) for r in restarts}
+    log(f"rolling restart on the card: {len(km)} durable requests across "
+        f"the roll, labels equal, pids {pids} -> {new}, restart time per "
+        f"worker (drain + respawn) {times} s, roll {roll_s:.3f} s, reload "
+        f"epochs {first['epochs']} then {again['epochs']}; a request after "
+        f"the roll launched {launches}; card memory peak "
+        f"{mem.peak / 2**30:.3f} GiB")
+    return dict(restart_s=times, launches=launches)
+
+
 def small_checks(torch, mods) -> None:
     mine, dbscan, synth, cancel = (mods["mine"], mods["dbscan"], mods["synth"],
                                    mods["cancel"])
@@ -1397,6 +1846,18 @@ def main() -> int:
             service_preemption(mods)
             small_checks(torch, mods)
             log(f"preemption + small checks: {time.time() - t_path:.1f} s")
+            t_path = time.time()
+            work, ref, warm = fleet_reference(mods)
+            fleet = fleet_failover(torch, mods, work, ref, warm)
+            log(f"fleet path: {time.time() - t_path:.1f} s, survivors' "
+                f"launches {fleet['launches']}")
+            t_path = time.time()
+            standby = standby_promotion(torch, mods, counters, work, ref,
+                                        warm)
+            roll = rolling_restart(torch, mods, work, ref, warm)
+            log(f"standby + rolling restart path: {time.time() - t_path:.1f}"
+                f" s, promoted launches {standby['launches']}, successors' "
+                f"launches {roll['launches']}")
         except SmokeFailure as exc:
             print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
             return 1

@@ -185,8 +185,29 @@ def _kmeans_pp(gen: torch.Generator, x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def fit(seed: Seed, x: torch.Tensor, cfg: KMeansConfig) -> KMeansResult:
-    """Lloyd loop to the paper's stop rule (host loop, no cancellation)."""
-    return fit_cancellable(seed, x, cfg)
+    """Lloyd loop to the paper's stop rule (host loop, no cancellation).
+
+    Like the reference's ``while shift >= tol`` loop it stops at the first
+    shift that is not ``>= tol``, so a NaN shift (NaN input) ends it after
+    that step; :func:`fit_cancellable`, like the reference's, runs a NaN
+    shift on to ``max_iters``.
+    """
+    c = init_centroids(seed, x, cfg)
+    assign = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    inertia = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
+    shift_f, it = float("inf"), 0
+    while shift_f >= cfg.tol and it < cfg.max_iters:
+        assign, c, shift, inertia = kmeans_step(x, c, cfg)
+        shift_f = float(shift)
+        it += 1
+    return KMeansResult(
+        centroids=c,
+        labels=assign.to(torch.int16),
+        inertia=inertia,
+        iterations=torch.tensor(it, dtype=torch.int32),
+        converged=torch.tensor(shift_f < cfg.tol),
+        cancelled=False,
+    )
 
 
 def fit_cancellable(

@@ -14,12 +14,23 @@ admission log, so a ``kill -9`` at any moment loses nothing that was
 admitted.  ``--bucket-policy`` picks how batch shapes are padded (``pow2``
 / ``linear[:STEP]`` / ``adaptive``, the self-tuning default).
 
+``--fleet N`` runs the workload through N worker processes behind the
+consistent-hash router (``--router-port`` serves the fleet exposition,
+``--rolling-restart`` restarts every worker one at a time afterwards);
+``--standby HOST:PORT`` ships the single-process service's WAL to a warm
+standby for the whole run.
+
 The service runs on the CUDA card unless ``--device cpu`` is given; with no
-card and no ``--device cpu`` it raises instead of running on the host.
+card and no ``--device cpu`` it raises instead of running on the host (a
+fleet worker exits before it announces, and the manager raises).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_mine \
         --workdir "$(mktemp -d)" --requests 32 --tenants 4 --rate 100 \
         --algo mixed --executor cuda-kernel
+
+    # three worker processes sharing the card, then a rolling restart
+    PYTHONPATH=src python -m repro_torch.launch.serve_mine \
+        --fleet 3 --router-port 0 --requests 18 --rolling-restart
 """
 
 from __future__ import annotations
@@ -228,12 +239,116 @@ def build_parser() -> argparse.ArgumentParser:
                          "replay admitted-but-unbatched requests from the "
                          "write-ahead admission log (admitted means "
                          "durable; implies --resume)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="run N worker processes behind the consistent-"
+                         "hash FleetRouter instead of one in-process "
+                         "service (each worker gets its own workdir + WAL "
+                         "under --workdir and, on the card, its own CUDA "
+                         "context; 0 = single-process mode)")
+    ap.add_argument("--router-port", type=int, default=None,
+                    help="with --fleet: serve the fleet-level Prometheus "
+                         "exposition (repro_fleet_* with a worker label; "
+                         "also /snapshot and cross-worker /trace) on this "
+                         "port; 0 binds an ephemeral port and prints it")
+    ap.add_argument("--standby", default=None, metavar="HOST:PORT",
+                    help="ship the write-ahead admission log to a warm "
+                         "StandbyReplica listening at this address for the "
+                         "whole run, so a lost workdir can be promoted "
+                         "without losing an admitted request "
+                         "(single-process mode)")
     ap.add_argument("--reload", default=None, metavar="JSON",
                     help="apply a live config reload before driving load: "
                          "a JSON object of reloadable knobs, e.g. "
-                         "'{\"tenant_rate\": 50}'; the bumped config epoch "
+                         "'{\"tenant_rate\": 50}' — fanned to every "
+                         "worker's POST /reload with --fleet, applied "
+                         "in-process otherwise; the bumped config epoch "
                          "is printed and stamped into traces and metrics")
+    ap.add_argument("--rolling-restart", action="store_true",
+                    help="with --fleet: after the workload drains, restart "
+                         "every worker one at a time (drain, respawn over "
+                         "the same workdir, re-pin the router) and drive a "
+                         "verification batch — the zero-downtime upgrade "
+                         "path")
     return ap
+
+
+def run_fleet(args, workdir: str) -> dict:
+    """--fleet N: the same workload through N worker processes behind the
+    consistent-hash router, then the fleet scorecard; returns the request
+    failure counts."""
+    from repro_torch.service.fleet import FleetRouter, WorkerManager
+
+    worker_config = {
+        "device": args.device,
+        "max_batch": args.max_batch,
+        "max_wait_s": args.max_wait_ms / 1000.0,
+        "continuous": not args.no_continuous,
+        "join_window_s": args.join_window,
+        "bucket_policy": args.bucket_policy,
+    }
+    if args.power_cap is not None:
+        worker_config["power_cap_watts"] = args.power_cap
+    if args.joule_rate is not None:
+        worker_config["tenant_joule_rate"] = args.joule_rate
+        worker_config["tenant_joule_burst"] = args.joule_burst
+    if args.warm_start is not None:
+        worker_config["warm_start"] = json.loads(args.warm_start)
+    if args.device_budget_mb is not None:
+        worker_config["device_budget_bytes"] = args.device_budget_mb * 2**20
+    manager = WorkerManager(workdir, args.fleet,
+                            worker_config=worker_config)
+    manager.start()
+    router = FleetRouter(manager)
+    exporter = None
+    try:
+        if args.router_port is not None:
+            exporter = router.serve_metrics(args.router_port)
+            print(f"# fleet telemetry: "
+                  f"http://127.0.0.1:{exporter.port}/metrics")
+        if args.reload:
+            changes = json.loads(args.reload)
+            result = router.reload(changes)
+            print(f"# reload: epochs {result['epochs']}, "
+                  f"converged {result['converged']}, "
+                  f"errors {result['errors']}")
+        workload = build_workload(
+            args.requests, args.tenants, args.algo,
+            features=args.features, clusters=args.clusters,
+            points=args.points)
+        executor = None if args.executor == "auto" else args.executor
+        failures = drive(router, workload, args.rate, executor,
+                         ttl=args.ttl)
+        if args.rolling_restart:
+            manager.rolling_restart()
+            for r in manager.restarts:
+                print(f"# rolling restart: {r['worker']} "
+                      f"pid {r['old_pid']} -> {r['new_pid']} "
+                      f"in {r['duration_s']:.2f}s")
+            # the upgraded fleet must still serve
+            verify = build_workload(min(args.requests, 8), args.tenants,
+                                    args.algo, features=args.features,
+                                    clusters=args.clusters,
+                                    points=args.points, seed=1)
+            post = drive(router, verify, args.rate, executor, ttl=args.ttl)
+            print(f"# rolling restart: post-restart batch failures {post}")
+        snap = router.metrics_snapshot()
+        fleet = snap["fleet"]
+        print(json.dumps(fleet, indent=2, default=str))
+        per_worker = {
+            name: (ws.get("totals") or {}).get("requests", 0)
+            for name, ws in snap["workers"].items()}
+        print(f"# fleet: {fleet['alive']}/{fleet['n_workers']} workers "
+              f"alive, requests per worker {per_worker}, "
+              f"router {fleet['router']['submitted']} submitted / "
+              f"{fleet['router']['retries']} retries / "
+              f"{fleet['router']['spills']} bounded-load spills, "
+              f"failures {failures}")
+    finally:
+        if exporter is not None:
+            exporter.stop()
+        router.close()
+        manager.stop()
+    return failures
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -244,14 +359,24 @@ def main(argv: Optional[List[str]] = None) -> None:
 def run(argv: Optional[List[str]] = None) -> dict:
     """Parse ``argv``, drive the workload, print the scorecard; returns the
     request failure counts."""
-    args = build_parser().parse_args(argv)
-    backend_mod.load(args.device)
-    warm_start = (json.loads(args.warm_start)
-                  if args.warm_start is not None else None)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.standby and args.fleet:
+        parser.error("--standby is single-process mode only: each fleet "
+                     "worker needs its own standby (see "
+                     "WorkerManager(standbys=...))")
+    if args.rolling_restart and not args.fleet:
+        parser.error("--rolling-restart needs --fleet N (the in-process "
+                     "equivalent is ClusteringService.handover())")
     workdir = args.workdir
     if workdir is None:
         workdir = tempfile.mkdtemp(prefix="repro_serve_mine_")
         print(f"# workdir: {workdir}")
+    if args.fleet:
+        return run_fleet(args, workdir)
+    backend_mod.load(args.device)
+    warm_start = (json.loads(args.warm_start)
+                  if args.warm_start is not None else None)
     service = ClusteringService(
         workdir,
         max_batch=args.max_batch,
@@ -268,6 +393,15 @@ def run(argv: Optional[List[str]] = None) -> dict:
         device=args.device,
     )
     client = MiningClient(service=service)
+    shipper = None
+    if args.standby:
+        from repro_torch.service.replicate import WalShipper
+
+        s_host, _, s_port = args.standby.rpartition(":")
+        shipper = WalShipper(service.wal, s_host or "127.0.0.1",
+                             int(s_port)).start()
+        service.attach_replicator(shipper)
+        print(f"# replicating WAL to standby {args.standby}")
     exporter = None
     if args.metrics_port is not None:
         exporter = TelemetryServer(service.metrics_snapshot,
@@ -309,6 +443,13 @@ def run(argv: Optional[List[str]] = None) -> dict:
             cfg = service.apply_config(json.loads(args.reload))
             print(f"# reload: epoch {cfg.epoch} applied")
         failures = drive(client, workload, args.rate, executor, ttl=args.ttl)
+    if shipper is not None:
+        shipper.stop(final_ship=True)
+        st = shipper.stats()
+        print(f"# standby: {st['bytes_shipped']} bytes shipped in "
+              f"{st['chunks_shipped']} chunks, "
+              f"lag {st['standby_lag_entries']} entries, "
+              f"{st['ship_errors']} ship errors")
     if exporter is not None:
         exporter.stop()
     if args.trace_dump:

@@ -13,10 +13,14 @@ that survives being killed at any moment.  Unbounded point streams ride
 :class:`StreamingSession` — mini-batch K-Means with per-tenant model state
 in the checkpoint store.
 
-This is the single-process service on one device (``device="cuda"`` by
-default).  The reference's distributed lane, fleet tier and WAL
-replication are not ported yet; a request too large for one device is
-refused at admission (``RequestTooLarge``).
+The service runs on one device (``device="cuda"`` by default).  Its WAL
+can be shipped to a warm standby that promotes into a live service
+(``replicate``), and the fleet tier runs N service processes behind a
+consistent-hash router that fails a SIGKILLed worker's WAL over onto a
+survivor and restarts workers one at a time (``fleet``); on the card
+every worker holds its own CUDA context on the one device.  The
+reference's distributed lane is not ported yet; a request too large for
+one device is refused at admission (``RequestTooLarge``).
 
     client    — MiningClient + ResultHandle: the async front door
     session   — StreamingSession: checkpointed per-tenant streams
@@ -41,8 +45,14 @@ refused at admission (``RequestTooLarge``).
     telemetry — Prometheus exposition + HTTP exporter, rotating JSONL
                 event log, SLO burn-rate evaluation
     config    — versioned ServiceConfig: the live-reload control surface
-    faults    — deterministic fault-injection points (REPRO_FAULT)
+    replicate — warm-standby WAL replication: segment shipper + standby
+                replica that can promote into a live service
+    faults    — deterministic fault-injection points (REPRO_FAULT) the
+                crash-matrix tests drive
     service   — the engine tying it together (executor lane pool)
+    fleet     — the horizontal tier: N worker processes behind a
+                consistent-hash router, heartbeat-supervised, with
+                WAL-replay failover (admitted means durable, fleet-wide)
 """
 
 from repro_torch.service.batcher import BatchKey, MicroBatch, MicroBatcher
@@ -107,9 +117,26 @@ from repro_torch.service.trace import (
     new_trace_id,
     read_spans,
 )
+from repro_torch.service.replicate import StandbyReplica, WalShipper
 from repro_torch.service.wal import RequestLog, WalLocked, WalRecord
+from repro_torch.service.fleet import (
+    ConsistentHashRing,
+    FleetHandle,
+    FleetRouter,
+    FleetStream,
+    FleetWorker,
+    WorkerManager,
+    render_fleet_prometheus,
+)
 
 __all__ = [
+    "ConsistentHashRing",
+    "FleetHandle",
+    "FleetRouter",
+    "FleetStream",
+    "FleetWorker",
+    "WorkerManager",
+    "render_fleet_prometheus",
     "AdaptivePolicy",
     "AdmissionQueue",
     "BacklogFull",
@@ -156,6 +183,8 @@ __all__ = [
     "ResultCache",
     "SLOEvaluator",
     "Span",
+    "StandbyReplica",
+    "WalShipper",
     "TelemetryServer",
     "WalLocked",
     "WalRecord",

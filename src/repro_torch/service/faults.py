@@ -81,6 +81,10 @@ POINTS = (
     "wal.append.after_fsync",       # durable, caller not yet acked
     "wal.mark_consumed.before_append",  # result delivered, consume not logged
     "wal.compact.before_unlink",    # segment chosen, file not yet removed
+    # Replication: primary->standby segment shipping.
+    "replicate.ship.before_send",   # chunk framed, not yet on the wire
+    "replicate.ship.mid_segment",   # mid-segment cursor, partial frame risk
+    "replicate.apply.before_write", # standby validated, not yet applied
     # Rolling restart: predecessor drained, successor not yet live.
     "service.handover.before_successor",
 )

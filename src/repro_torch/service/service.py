@@ -336,6 +336,9 @@ class ClusteringService:
         # successful apply_config() bumps it (see service/config.py)
         self._config_epoch = 0
         self._config_lock = threading.Lock()
+        # optional WAL shipper (service/replicate.py), attached by the
+        # operator layer; surfaces as metrics_snapshot()["replication"]
+        self._replicator = None
 
     def _join_open(self, key: BatchKey) -> bool:
         """Batcher hint: is an in-flight continuous batch with this key
@@ -1373,6 +1376,11 @@ class ClusteringService:
             "changes": sorted(changes)})
         return candidate
 
+    def attach_replicator(self, shipper: Any) -> None:
+        """Register the WAL shipper whose stats ride
+        ``metrics_snapshot()["replication"]`` (see service/replicate.py)."""
+        self._replicator = shipper
+
     def handover(self, *, successor_kwargs: Optional[Dict[str, Any]] = None,
                  drain_timeout: float = 30.0,
                  replay_rate: Optional[float] = None,
@@ -1397,6 +1405,10 @@ class ClusteringService:
         kwargs.setdefault("warm_start", list(self.warm_start))
         kwargs.setdefault("device", self.device)
         self.stop(drain=True, timeout=drain_timeout)
+        if self._replicator is not None:
+            # the old process's shipper must not race the successor's
+            # appends; the operator layer re-attaches one if it wants
+            self._replicator.stop()
         # crash window: predecessor drained and unlocked, successor not
         # yet alive — the WAL on disk is the whole truth
         faults.at("service.handover.before_successor")
@@ -1473,6 +1485,8 @@ class ClusteringService:
         snap["energy"] = energy
         snap["exec_cache"] = self.exec_cache.stats()
         snap["wal"] = self.wal.stats() if self.wal is not None else None
+        snap["replication"] = (self._replicator.stats()
+                               if self._replicator is not None else None)
         snap["config"] = {"epoch": self._config_epoch,
                           **self.current_config().as_dict()}
         ws = self.metrics.window_stats()

@@ -536,3 +536,78 @@ def test_flash_tc_route_leaves_unaligned_views_to_simt(gen):
     assert aops.flash_attention.launches_by_route["tc"] == before["tc"] + 1
     tol = ATTN_TOL[torch.bfloat16]
     assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_fused_kernel_keeps_a_nan_row_in_its_own_centroid(gen):
+    """NaN input splits the lanes on purpose: the kernel (``cuda-kernel``)
+    adds a NaN row to its own centroid's sums only, where the plain
+    version (``torch-ref``) spreads its NaN coordinate to every centroid
+    through the one-hot product (0 x NaN).  The assignments and counts
+    agree, as do the sums of every coordinate the NaN does not touch.
+    No admission check stands in front of either, as in the reference."""
+    x = torch.randn(128, 4, generator=gen) * 3
+    x[7, 0] = float("nan")
+    c = torch.randn(2, 4, generator=gen) * 3
+    x, c = x.cuda(), c.cuda()
+    mask = torch.ones(128, dtype=torch.bool, device="cuda")
+    idx, sums, counts, _ = fops.fused_masked_assign_update(x, c, mask)
+    ridx, rsums, rcounts, _ = dref.fused_masked_assign_update_ref(x, c, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(counts, rcounts)
+    own = int(idx[7])
+    assert own == 0                      # an all-NaN score row: index 0
+    assert torch.isnan(sums[own, 0]) and torch.isfinite(sums[1 - own]).all()
+    assert torch.isnan(rsums[:, 0]).all()
+    assert torch.allclose(sums[:, 1:], rsums[:, 1:], rtol=1e-5, atol=1e-5)
+
+
+def test_card_fleet_labels_equal_a_single_process_service(gen, tmp_path):
+    """Two worker processes on the one card, each with its own CUDA
+    context, give the labels of a single-process service on the card, bit
+    for bit per content hash, every request on ``cuda-kernel``; the
+    workers' own counters show the kernels launched there."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.service import (ClusteringService, MiningClient,
+                                     content_key)
+    from repro_torch.service.fleet import FleetRouter, WorkerManager
+
+    _build.build_all()        # the workers load what this process built
+    rng = np.random.default_rng(0)
+    work = []
+    for i in range(6):
+        algo = "kmeans" if i % 3 else "dbscan"
+        x = (rng.normal(size=(2048, 4)) * 0.3
+             + rng.integers(0, 8, size=(2048, 1)) * 4).astype(np.float32)
+        params = ({"k": 8, "seed": i, "max_iters": 30} if algo == "kmeans"
+                  else {"eps": 2.0, "min_pts": 40})
+        work.append((f"t{i}", algo, x, params))
+    cfg = {"max_batch": 4, "max_wait_s": 0.005, "bucket_policy": "pow2"}
+    svc = ClusteringService(str(tmp_path / "single"), device="cuda", **cfg)
+    client = MiningClient(service=svc)
+    with svc:
+        handles = [client.submit(t, a, x, params=p, executor="cuda-kernel")
+                   for t, a, x, p in work]
+        single = {h.cache_key: h.result(300) for h in handles}
+    manager = WorkerManager(str(tmp_path / "fleet"), 2, worker_config=cfg,
+                            heartbeat_interval=0.25)
+    manager.start()
+    router = FleetRouter(manager)
+    try:
+        handles = [(content_key(a, p, x),
+                    router.submit(t, a, x, params=p, executor="cuda-kernel"))
+                   for t, a, x, p in work]
+        for key, h in handles:
+            got = h.result(300)
+            assert got["executor"] == "cuda-kernel"
+            assert np.array_equal(got["labels"], single[key]["labels"])
+        snap = router.metrics_snapshot()["workers"]
+        launches = {n: s["kernel_launches"] for n, s in snap.items()}
+        total = {k: sum(v[k] for v in launches.values())
+                 for k in ("fused_masked_assign_update", "epsilon_degree",
+                           "expand_frontier")}
+        assert all(v > 0 for v in total.values()), launches
+    finally:
+        router.close()
+        manager.stop()

@@ -1,6 +1,7 @@
-"""The port stands alone: a CPU mining job, a CPU service round trip and a
-CPU LM serving batch in a fresh interpreter load neither jax nor anything
-of the reference package."""
+"""The port stands alone: a CPU mining job, a CPU service round trip, a
+CPU LM serving batch and the durable serving tier's modules (replication,
+the fleet and its worker entry point) in a fresh interpreter load neither
+jax nor anything of the reference package."""
 
 import os
 import subprocess
@@ -32,6 +33,10 @@ from repro_torch.launch import serve
 out = serve.serve_batch(arch="olmo-1b", smoke=True, batch=2, prompt_len=6,
                         gen=3, device="cpu")
 assert tuple(out["generated"].shape) == (2, 3), out
+import repro_torch.service.replicate
+import repro_torch.service.fleet
+import repro_torch.service.fleet.worker
+assert repro_torch.service.fleet.worker.FleetWorker
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]

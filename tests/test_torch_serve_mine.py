@@ -1,7 +1,11 @@
 """The port's service launcher (the reference's serve_mine CLI), on the
-CPU: a mixed workload drains with zero failures and prints the scorecard."""
+CPU: a mixed workload drains with zero failures and prints the scorecard;
+the fleet form (two worker processes, a rolling restart, a fleet-wide
+reload) and the standby form do too, and the parser refuses the flag
+mixes the reference refuses."""
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.launch import serve_mine
@@ -59,3 +63,51 @@ def test_drive_collects_results_in_order(tmp_path):
     assert [r["algo"] for r in results] == ["dbscan"] * 3
     for (_, _, x, _), r in zip(workload, results):
         assert r["labels"].shape == (x.shape[0],)
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--fleet", "2", "--standby", "127.0.0.1:1"], "single-process mode"),
+    (["--rolling-restart"], "needs --fleet"),
+])
+def test_parser_refuses_what_the_reference_refuses(tmp_path, capsys, argv,
+                                                   message):
+    with pytest.raises(SystemExit) as ei:
+        serve_mine.run(["--device", "cpu", "--workdir", str(tmp_path),
+                        *argv])
+    assert ei.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+def test_fleet_cli_rolls_its_workers_on_cpu(tmp_path, capsys):
+    failures = serve_mine.run([
+        "--device", "cpu", "--workdir", str(tmp_path), "--fleet", "2",
+        "--router-port", "0", "--requests", "4", "--tenants", "2",
+        "--algo", "mixed", "--rate", "0", "--points", "16",
+        "--executor", "cuda-kernel", "--rolling-restart",
+        "--reload", '{"tenant_rate": 500}'])
+    assert failures == {"suspended": 0, "dropped": 0, "rejected": 0}
+    out = capsys.readouterr().out
+    assert "# fleet telemetry: http://127.0.0.1:" in out
+    assert "converged True" in out
+    assert out.count("# rolling restart: worker-") == 2
+    assert ("post-restart batch failures {'suspended': 0, 'dropped': 0, "
+            "'rejected': 0}" in out)
+    assert "# fleet: 2/2 workers alive" in out
+
+
+def test_standby_cli_ships_the_whole_wal(tmp_path, capsys):
+    from repro_torch.service import StandbyReplica
+    standby = StandbyReplica(str(tmp_path / "standby")).start()
+    try:
+        failures = serve_mine.run([
+            "--device", "cpu", "--workdir", str(tmp_path / "primary"),
+            "--requests", "3", "--algo", "kmeans", "--points", "16",
+            "--rate", "0", "--executor", "torch-ref",
+            "--standby", f"127.0.0.1:{standby.port}"])
+        assert failures == {"suspended": 0, "dropped": 0, "rejected": 0}
+        out = capsys.readouterr().out
+        assert f"# replicating WAL to standby 127.0.0.1:{standby.port}" in out
+        assert "lag 0 entries, 0 ship errors" in out
+        assert standby.stats()["applied_entry_id"] == 3
+    finally:
+        standby.stop()
