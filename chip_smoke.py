@@ -23,7 +23,13 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    versions (torch.equal), two launches bitwise equal, each timed beside
    its plain version and a composed cdist yardstick, the exact rechecks
    per pair scored, the host time a call and (profiler) the device time
-   a call logged; flash
+   a call logged; the cross entries (rows of one shard against the
+   columns of another, the distributed lane's ring step) at the ring's
+   shape: phase 4d's DBSCAN request padded to 131,072 rows and cut into 4
+   shards of 32,768, rows and columns the last shard (its far-diagonal
+   pads included), a ~5% frontier, each equal to its plain twin, timed
+   beside it and a composed cdist yardstick, with the rechecks per pair
+   scored at every (rows, columns) pair of the ring; flash
    attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
    bf16, causal), GLM4-9B's (B 1, S 4096, 32 heads on 2 KV heads) and
    MiniCPM-2B's width (B 2, S 2048, 36 heads of 64) and three more (odd
@@ -106,6 +112,21 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    fleet-wide reload converges on one epoch before and after, and a new
    request after the roll launches the fused kernel.  The card's peak
    memory (every process on it) is printed for each.
+4d. Slice 8's path, the distributed lane, on the card with no fallback:
+   (a) a DBSCAN request of 100,000 points (4 features, 8 clusters, eps 2,
+   min_pts 40) at the default budget is routed to ``distributed`` with no
+   flag (its 131,072-row bucket is over budget) and its labels equal the
+   one-job ``dbscan`` fit on the card of the same padded points (1 cross
+   degree launch, 1 cross expansion a BFS step); (b) the same points
+   through ``sharded_dbscan_fit_resumable`` on 4 shards of the card: the
+   same labels, 16 cross launches a ring call; (c) a K-Means request of
+   2^20 points (32 features, 64 clusters, ``max_iters`` 50) routed there
+   by a 256 MiB budget, at 1 and 4 shards: labels and iterations equal to
+   the ``cuda-kernel`` lane's (the shards are cut at the fused step's
+   blocks, so its partials and their reduction are the one launch's), one
+   fused pass-1 launch a shard and one pass-2 launch a Lloyd iteration; (d) both requests preempted mid-shard at 4 shards and
+   resumed at 1 to the same labels.  Each run's wall (profiler on),
+   device busy share and launches are printed.
 5. Launch counters are zeroed just before each path and read just after;
    every kernel of a path must have launched in it.  Prints one ``kernels``
    JSON line and, last, the device line.  Any failed check exits non-zero
@@ -170,6 +191,16 @@ ROLL_WORKERS = 2
 # (tol 0), long enough to be cancelled mid-run.
 PREEMPT_KMEANS = dict(features=32, clusters=64, points=4096)
 PREEMPT_ITERS = 1000
+# The distributed lane (phase 4d): a DBSCAN request at the dbscan-64K job's
+# parameters and 100,000 points, whose 131,072-row bucket is over the
+# default budget (4 n^2 bytes) so it rides the lane with no flag; a
+# K-Means request of the service-kmeans-1M shape, routed there by a 256 MiB
+# budget (its estimate at 2^20 rows is 528 MiB); meshes of 1 shard (the one
+# card) and of 4 shards repeating it.
+DIST_DBSCAN = dict(features=4, clusters=8, points=12500)
+DIST_KMEANS = dict(features=32, clusters=64, points=16384)
+DIST_KMEANS_BUDGET = 256 * 2**20
+DIST_SHARDS = 4
 
 # Flash attention on the card: (what, B, S, H, KV, D, dtype, causal).  The
 # first is OLMo-1B's prefill at the serving shape; the row's timing is there.
@@ -717,6 +748,164 @@ def kernel_neighbor(torch, mods, sass: dict) -> list:
              bound_fp32_ms=one_job["exp_fp32"],
              shape=f"{one_job['shape']} frontier={one_job['frontier']}",
              rechecks=one_job["exp_rechecks"], **common),
+    ]
+
+
+def _dist_dbscan_request(mods):
+    """Phase 4d's DBSCAN request (tenant, algo, points, params) and its
+    bucket as the batch executor pads it (131,072 rows, the far-diagonal
+    pads): the points the distributed lane is launched on."""
+    import numpy as np
+    from repro_torch.service import executor
+    (req,) = mods["serve_mine"].build_workload(
+        1, 1, "dbscan", seed=SEED + 11, **DIST_DBSCAN)
+    x, params = req[2], req[3]
+    n_max = 1 << (x.shape[0] - 1).bit_length()
+    return req, executor._pad_item(x, n_max, "dbscan", params["eps"],
+                                   float(np.max(x)))
+
+
+def card_mesh(mods, shards: int):
+    """A mesh of ``shards`` shards, every one on the card."""
+    import torch
+    return mods["dist"].Mesh((torch.device(DEV, 0),) * shards)
+
+
+def kernel_cross(torch, mods, sass: dict) -> list:
+    """The cross entries at the ring's shape: phase 4d's DBSCAN request
+    padded to 131,072 rows and cut into 4 shards of 32,768; the rows and
+    the columns both the last shard (1,696 points and 31,072 far-diagonal
+    pads, the ring's most pad-laden step), a ~5% frontier.  Each equal to
+    its plain twin (torch.equal), two launches bitwise equal; kernel,
+    plain and composed library times, the device time a call, the bound
+    (the packed product over rows x columns pairs); the rechecks per pair
+    scored at every (rows, columns) pair of the 4-shard ring."""
+    nops, nref, dist = mods["nops"], mods["nref"], mods["dist"]
+    req, x_pad = _dist_dbscan_request(mods)
+    high = float(req[2].max())   # pads lie beyond every real coordinate
+    eps = 2.0
+    shards = dist.shard(card_mesh(mods, DIST_SHARDS),
+                        torch.from_numpy(x_pad))
+    ring = {}
+    for i, rows in enumerate(shards):
+        for j, cols in enumerate(shards):
+            nops.epsilon_degree_cross(rows, cols, eps)
+            total, pairs = nops.rechecks(nops.epsilon_degree_cross)
+            ring[f"{i},{j}"] = total / max(pairs, 1)
+    log("cross degree, rechecks per pair scored at each (rows, columns) "
+        "shard pair of the 4-shard ring (shard 3 holds the pads): "
+        + json.dumps(ring))
+    # what the pads' rechecks cost: the same call on a step without pads
+    plain_step = time_ms(torch, lambda: nops.epsilon_degree_cross(
+        shards[0], shards[1], eps), reps=10)
+    log(f"cross degree on a ring step without pads (rows shard 0, columns "
+        f"shard 1): {plain_step:.4f} ms")
+    rows = cols = shards[-1]
+    nr, d = rows.shape
+    nc = cols.shape[0]
+    g = torch.Generator().manual_seed(SEED + nc)
+    front = (torch.rand(nc, generator=g) < FRONTIER_FRACTION).to(DEV)
+    nf = int(front.sum())
+    deg = nops.epsilon_degree_cross(rows, cols, eps)
+    deg_rc = nops.rechecks(nops.epsilon_degree_cross)
+    deg2 = nops.epsilon_degree_cross(rows, cols, eps)
+    reach = nops.expand_frontier_cross(rows, cols, front, eps)
+    exp_rc = nops.rechecks(nops.expand_frontier_cross)
+    reach2 = nops.expand_frontier_cross(rows, cols, front, eps)
+    rdeg = nref.epsilon_degree_cross_ref(rows, cols, eps)
+    rreach = nref.expand_frontier_cross_ref(rows, cols, front, eps)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(deg, rdeg)),
+          f"cross degree: {int((deg != rdeg).sum())} rows differ from the "
+          f"plain twin")
+    check(bool(torch.equal(reach, rreach)),
+          f"cross expansion: {int((reach != rreach).sum())} rows differ "
+          f"from the plain twin")
+    check(bool(torch.equal(deg, deg2)) and bool(torch.equal(reach, reach2)),
+          "cross entries: two launches differ")
+    eps_t = torch.tensor(eps, device=DEV)
+    cf = cols[front]
+
+    def composed_degree():
+        # cdist + threshold + row count, chunked (yardstick, never used)
+        return torch.cat([(torch.cdist(rows[r:r + 2048], cols) <= eps_t)
+                          .sum(1) for r in range(0, nr, 2048)])
+
+    def composed_expand():
+        return torch.cat([(torch.cdist(rows[r:r + 8192], cf) <= eps_t).any(1)
+                          for r in range(0, nr, 8192)])
+
+    deg_call = lambda: nops.epsilon_degree_cross(rows, cols, eps)  # noqa
+    exp_call = lambda: nops.expand_frontier_cross(rows, cols, front,  # noqa
+                                                  eps)
+    depth = 8 * nref.pack_ksteps(d)
+    t = dict(
+        deg_err=float((deg - rdeg).abs().max()),
+        exp_err=float((reach.int() - rreach.int()).abs().max()),
+        deg_host_us=host_us(torch, deg_call),
+        exp_host_us=host_us(torch, exp_call),
+        deg_ms=time_ms(torch, deg_call, reps=10),
+        exp_ms=time_ms(torch, exp_call, reps=20),
+        deg_plain=time_ms(torch, lambda: nref.epsilon_degree_cross_ref(
+            rows, cols, eps), reps=2),
+        exp_plain=time_ms(torch, lambda: nref.expand_frontier_cross_ref(
+            rows, cols, front, eps), reps=3),
+        deg_lib=time_ms(torch, composed_degree, reps=3),
+        exp_lib=time_ms(torch, composed_expand, reps=5),
+        deg_device_ms=profile_window(torch, "cross degree", deg_call)[
+            "busy_ms"],
+        exp_device_ms=profile_window(torch, "cross expansion", exp_call)[
+            "busy_ms"])
+    # PERF.md section 6's formula: the packed product (2 operations per
+    # multiply-add, 8 ks deep) over the pairs the call needs, rows x
+    # columns (rows x frontier columns for the expansion), at the TF32
+    # tensor-core peak; bytes: both point sets once, the result once
+    t["deg_bound"], t["deg_by"] = bound((nr + nc) * d * 4 + nr * 4,
+                                        2.0 * depth * nr * nc, PEAK_TF32)
+    t["exp_bound"], t["exp_by"] = bound((nr + nc) * d * 4 + nc + nr,
+                                        2.0 * depth * nr * nf, PEAK_TF32)
+    t["deg_fp32"], _ = bound((nr + nc) * d * 4 + nr * 4, 3.0 * d * nr * nc)
+    t["exp_fp32"], _ = bound((nr + nc) * d * 4 + nc + nr, 3.0 * d * nr * nf)
+    shape = (f"ring step: rows {nr} x cols {nc} d={d} eps={eps}, "
+             f"{int((rows[:, 0] > high).sum())} pads")
+    rc = {"degree": dict(rechecks=deg_rc[0], pairs=deg_rc[1],
+                         per_pair=deg_rc[0] / max(deg_rc[1], 1)),
+          "expansion": dict(rechecks=exp_rc[0], pairs=exp_rc[1],
+                            per_pair=exp_rc[0] / max(exp_rc[1], 1))}
+    log(f"cross entries {shape}: degree and expansion (frontier {nf}) "
+        f"equal to the plain twins, two launches bitwise equal; degree "
+        f"{t['deg_ms']:.4f} ms (device {t['deg_device_ms']:.4f}, plain "
+        f"{t['deg_plain']:.3f}, composed {t['deg_lib']:.3f}, bound "
+        f"{t['deg_bound']:.4f}), expansion {t['exp_ms']:.4f} ms (device "
+        f"{t['exp_device_ms']:.4f}, plain {t['exp_plain']:.3f}, composed "
+        f"{t['exp_lib']:.3f}, bound {t['exp_bound']:.4f}); rechecks per "
+        f"pair: degree {rc['degree']['per_pair']!r} ({deg_rc[0]} of "
+        f"{deg_rc[1]}), expansion {rc['expansion']['per_pair']!r} "
+        f"({exp_rc[0]} of {exp_rc[1]}); host time a call: degree "
+        f"{t['deg_host_us']:.1f} us, expansion {t['exp_host_us']:.1f} us; "
+        f"plans {list(nops.plan(nr, d, cols=nc))} / "
+        f"{list(nops.plan(nr, d, True, cols=nc))}")
+    common = dict(route="cuda", source="src/repro_torch/csrc/neighbor.cu",
+                  library_call="cdist + threshold + reduction, chunked "
+                               "(composed)", sass=sass,
+                  ring_rechecks_per_pair=ring)
+    return [
+        dict(name="epsilon_degree_cross",
+             replaces="src/repro/kernels/neighbor/neighbor.py:53",
+             max_abs_err=t["deg_err"], ms=t["deg_ms"],
+             plain_ms=t["deg_plain"], bound_ms=t["deg_bound"],
+             bound_by=t["deg_by"], library_ms=t["deg_lib"],
+             bound_fp32_ms=t["deg_fp32"], device_ms=t["deg_device_ms"],
+             host_us=t["deg_host_us"], shape=shape,
+             rechecks=rc["degree"], **common),
+        dict(name="expand_frontier_cross",
+             replaces="src/repro/kernels/neighbor/neighbor.py:65",
+             max_abs_err=t["exp_err"], ms=t["exp_ms"],
+             plain_ms=t["exp_plain"], bound_ms=t["exp_bound"],
+             bound_by=t["exp_by"], library_ms=t["exp_lib"],
+             bound_fp32_ms=t["exp_fp32"], device_ms=t["exp_device_ms"],
+             host_us=t["exp_host_us"], shape=f"{shape} frontier={nf}",
+             rechecks=rc["expansion"], **common),
     ]
 
 
@@ -1347,6 +1536,201 @@ def service_preemption(mods) -> None:
         f"({PREEMPT_ITERS} iterations, resume {outcomes[0].exec_s:.3f} s)")
 
 
+def _dist_preempt(mods, label, req, reg_from, reg_to, expected) -> None:
+    """A batch of one oversized request run by a BatchExecutor on
+    ``reg_from``'s distributed lane, preempted after its second sharded
+    checkpoint, then resumed by a fresh executor on ``reg_to``'s: labels
+    (and K-Means iterations) equal to ``expected``."""
+    service, cancel = mods["service"], mods["cancel"]
+    tenant, algo, x, params = req
+    wd = workdir(mods, "dist_pre_")
+    q = service.AdmissionQueue()
+    batcher = service.MicroBatcher(
+        q, max_batch=1, max_wait_s=0.0, oversized=lambda r: reg_from.oversized(
+            r.algo, r.n_points, r.features, r.params))
+    q.submit(service.MiningRequest(tenant=tenant, algo=algo, data=x,
+                                   params=dict(params)))
+    (batch,) = batcher.poll()
+    check(batch.oversized, f"{label}: the batch is not oversized")
+    ex = service.BatchExecutor(wd, registry=reg_from, checkpoint_every=2)
+    token = cancel.CancellationToken()
+
+    def hook(job_id, item, events):
+        if events == 2:   # mid-item, after a sharded checkpoint
+            token.cancel(cancel.CancelReason.PREEMPTION)
+
+    out = ex.run_batch(batch, token=token, progress_hook=hook)
+    check(out.suspended and out.executor == "distributed",
+          f"{label}: not suspended mid-shard ({out.executor})")
+    shards_from = out.plan["shards"]
+    outs = service.BatchExecutor(wd, registry=reg_to,
+                                 checkpoint_every=2).resume_suspended()
+    check(len(outs) == 1 and outs[0].resumed and not outs[0].suspended
+          and outs[0].executor == "distributed",
+          f"{label}: resume gave {outs}")
+    got = outs[0].results[0]
+    check(bool((got["labels"] == expected["labels"]).all()),
+          f"{label}: resumed labels differ")
+    if algo == "kmeans":
+        check(got["iterations"] == expected["iterations"],
+              f"{label}: {got['iterations']} iterations, uninterrupted "
+              f"{expected['iterations']}")
+    log(f"distributed {label}: suspended mid-shard at p = {shards_from}, "
+        f"resumed at p = {outs[0].plan['shards']} to the uninterrupted "
+        f"labels (resume {outs[0].exec_s:.3f} s)")
+
+
+def distributed_path(torch, mods, counters) -> dict:
+    """4d: the distributed lane on the card, no fallback.  (a) A DBSCAN
+    request of 100,000 points at the default budget is routed to
+    ``distributed`` with no flag; labels equal the one-job fit on the card
+    of the same padded points.  (b) The same points through
+    ``sharded_dbscan_fit_resumable`` on 4 shards of the card: the same
+    labels, 16 cross launches a ring call.  (c) A K-Means request of 2^20
+    points routed there by a 256 MiB budget, at 1 and 4 shards: labels and
+    iterations equal the ``cuda-kernel`` lane's.  (d) Both algorithms
+    preempted mid-shard at 4 shards and resumed at 1.  Each run's wall
+    (profiler on), device busy share and launches are logged; returns the
+    launches over the whole path."""
+    import numpy as np
+    service, dist, dbscan = mods["service"], mods["dist"], mods["dbscan"]
+    serve_mine = mods["serve_mine"]
+    names = ("epsilon_degree_cross", "expand_frontier_cross",
+             "fused_masked_assign_update", "reduce_partials",
+             "epsilon_degree", "expand_frontier")
+    launches = dict.fromkeys(names, 0)
+
+    def run(label, fn) -> dict:
+        reset(counters)
+        prof = profile_window(torch, f"distributed {label}", fn)
+        got = {k: counters[k].launches for k in names}
+        for k in names:
+            launches[k] += got[k]
+        log(f"distributed {label}: wall {prof['wall_ms'] / 1e3:.3f} s "
+            f"(profiler on), device busy {prof['busy_ms'] / 1e3:.3f} s = "
+            f"{prof['busy_ms'] / prof['wall_ms']:.3f} of the wall, "
+            f"launches {got}")
+        return got
+
+    def served(reg, label, req, executor=None, **kw) -> dict:
+        """One request through a card service (auto-routed unless
+        ``executor``); its result."""
+        tenant, algo, x, params = req
+        svc = service.ClusteringService(
+            workdir(mods, "dist_svc_"), registry=reg, device=DEV,
+            max_wait_s=0.005, bucket_policy="pow2", **kw).start()
+        out = {}
+        try:
+            def drive():
+                h = serve_mine.MiningClient(service=svc).submit(
+                    tenant, algo, x, params=params, executor=executor)
+                out["r"] = h.result(900)
+            out["launches"] = run(label, drive)
+        finally:
+            svc.stop()
+        check(out["r"]["executor"] == (executor or "distributed"),
+              f"distributed {label}: served by {out['r']['executor']}")
+        return out
+
+    mesh4 = card_mesh(mods, DIST_SHARDS)
+
+    def registry(budget=None, mesh=None):
+        reg = service.default_registry(device_budget_bytes=budget,
+                                       device=DEV)
+        if mesh is not None:
+            reg.register(service.DistributedParadigm(device=DEV, mesh=mesh))
+        return reg
+
+    # --- (a) DBSCAN routed with no flag ------------------------------------
+    db_req, x_pad = _dist_dbscan_request(mods)
+    x = db_req[2]
+    n, n_max = x.shape[0], x_pad.shape[0]
+    cfg = dbscan.DBSCANConfig(eps=db_req[3]["eps"],
+                              min_pts=db_req[3]["min_pts"])
+    check(registry().oversized("dbscan", n, x.shape[1], db_req[3]),
+          "dbscan 100,000 points: not over the default budget")
+    a = served(registry(), "(a) DBSCAN 100,000 points, default budget",
+               db_req)
+    ra, got = a["r"], a["launches"]
+    valid = torch.arange(n_max, device=DEV) < n
+    one, _ = dbscan.fit_resumable(torch.from_numpy(x_pad).to(DEV), cfg,
+                                  valid_mask=valid)
+    labels_one = one.labels[:n].cpu().numpy()
+    check(bool((ra["labels"] == labels_one).all()),
+          "(a): distributed labels differ from the one-job fit on the card")
+    nexp = int(one.expansions)
+    check(got["epsilon_degree_cross"] == 1
+          and got["expand_frontier_cross"] == nexp >= 1,
+          f"(a): cross launches {got} for {nexp} expansions at p = 1")
+    log(f"distributed (a): {n} points padded to {n_max}, "
+        f"{int(ra['labels'].max())} clusters, {nexp} expansions, labels "
+        f"equal to the one-job fit on the card")
+
+    # --- (b) the same points on 4 shards -----------------------------------
+    res = {}
+
+    def fit4():
+        res["b"], _ = dist.sharded_dbscan_fit_resumable(
+            mesh4, x_pad, cfg, valid_mask=np.arange(n_max) < n)
+        res["b"].labels.cpu()
+
+    got = run("(b) DBSCAN on 4 shards of the card", fit4)
+    # the host loop without the profiler: wall a BFS step at 1 and 4 shards
+    for shards, mesh in ((1, card_mesh(mods, 1)), (DIST_SHARDS, mesh4)):
+        wall = timed_wall(torch, lambda: dist.sharded_dbscan_fit_resumable(
+            mesh, x_pad, cfg, valid_mask=np.arange(n_max) < n))
+        log(f"distributed DBSCAN fit at {shards} shard(s), profiler off: "
+            f"{wall:.4f} s for the degree and {nexp} BFS steps "
+            f"({wall / (nexp + 1) * 1e3:.3f} ms a ring call)")
+    check(bool((res["b"].labels[:n].cpu().numpy() == labels_one).all()),
+          "(b): 4-shard labels differ from (a)")
+    check(got["epsilon_degree_cross"] == 16
+          and got["expand_frontier_cross"] == 16 * nexp,
+          f"(b): cross launches {got}, want 16 a ring call ({nexp} "
+          f"expansions)")
+
+    # --- (c) K-Means routed by a budget, at 1 and 4 shards -----------------
+    (km_req,) = serve_mine.build_workload(1, 1, "kmeans", seed=SEED + 12,
+                                          **DIST_KMEANS)
+    nk, dk = km_req[2].shape
+    check(registry(DIST_KMEANS_BUDGET).oversized("kmeans", nk, dk, km_req[3])
+          and not registry().oversized("kmeans", nk, dk, km_req[3]),
+          "kmeans 2^20 points: the 256 MiB budget does not route it")
+    lane = served(registry(), "(c) K-Means 2^20 points on cuda-kernel",
+                  km_req, executor="cuda-kernel")["r"]
+    for shards, mesh in ((1, None), (DIST_SHARDS, mesh4)):
+        c = served(registry(DIST_KMEANS_BUDGET, mesh),
+                   f"(c) K-Means 2^20 points, 256 MiB budget, {shards} "
+                   f"shard(s)", km_req)
+        r, got = c["r"], c["launches"]
+        check(bool((r["labels"] == lane["labels"]).all())
+              and r["iterations"] == lane["iterations"],
+              f"(c) at {shards} shard(s): labels or iterations "
+              f"({r['iterations']} vs {lane['iterations']}) differ from "
+              f"the cuda-kernel lane")
+        check(got["fused_masked_assign_update"] == shards * r["iterations"]
+              and got["reduce_partials"] == r["iterations"],
+              f"(c) at {shards} shard(s): launches {got} for "
+              f"{r['iterations']} iterations (want pass 1 once a shard, "
+              f"pass 2 once, an iteration)")
+        log(f"distributed (c) at {shards} shard(s): {r['iterations']} "
+            f"iterations, labels and iterations equal to the cuda-kernel "
+            f"lane's, inertia {r['inertia']!r} (lane {lane['inertia']!r})")
+
+    # --- (d) preempted at 4 shards, resumed at 1 ---------------------------
+    run("(d) DBSCAN preempted at 4 shards, resumed at 1",
+        lambda: _dist_preempt(mods, "(d) DBSCAN", db_req,
+                              registry(mesh=mesh4), registry(), ra))
+    run("(d) K-Means preempted at 4 shards, resumed at 1",
+        lambda: _dist_preempt(mods, "(d) K-Means", km_req,
+                              registry(DIST_KMEANS_BUDGET, mesh4),
+                              registry(DIST_KMEANS_BUDGET), lane))
+    for k in ("epsilon_degree_cross", "expand_frontier_cross",
+              "fused_masked_assign_update"):
+        check(launches[k] > 0, f"distributed path: {k} never launched")
+    return launches
+
+
 class CardMemory:
     """The card's peak used memory over a window, every process on it
     counted (free memory from ``cudaMemGetInfo``, sampled by a thread)."""
@@ -1791,6 +2175,7 @@ def main() -> int:
         return 1
     from repro_torch.core import dbscan, kmeans
     from repro_torch.core import cancellation as cancel
+    from repro_torch.core import distributed as dist
     from repro_torch.data import synthetic as synth
     from repro_torch import configs
     from repro_torch.kernels import _build
@@ -1807,11 +2192,14 @@ def main() -> int:
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
                 cancel=cancel, serve_mine=serve_mine, service=service,
                 aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
-                configs=configs)
+                configs=configs, dist=dist)
     counters = {"assign_clusters": dops.assign_clusters,
                 "fused_masked_assign_update": fops.fused_masked_assign_update,
                 "epsilon_degree": nops.epsilon_degree,
                 "expand_frontier": nops.expand_frontier,
+                "epsilon_degree_cross": nops.epsilon_degree_cross,
+                "expand_frontier_cross": nops.expand_frontier_cross,
+                "reduce_partials": fops.reduce_partials,
                 "flash_attention": aops.flash_attention}
     t_start = time.time()
     card = card_line()
@@ -1829,6 +2217,7 @@ def main() -> int:
                     kernel_fused(torch, mods, sass["fused"])]
             wide_rows(torch, mods)
             rows += [*kernel_neighbor(torch, mods, sass["neighbor"]),
+                     *kernel_cross(torch, mods, sass["neighbor"]),
                      kernel_attention(torch, mods, sass["flash_sm90"])]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
@@ -1846,6 +2235,10 @@ def main() -> int:
             service_preemption(mods)
             small_checks(torch, mods)
             log(f"preemption + small checks: {time.time() - t_path:.1f} s")
+            t_path = time.time()
+            dist_launches = distributed_path(torch, mods, counters)
+            log(f"distributed path: {time.time() - t_path:.1f} s, launches "
+                f"{dist_launches}")
             t_path = time.time()
             work, ref, warm = fleet_reference(mods)
             fleet = fleet_failover(torch, mods, work, ref, warm)
@@ -1867,6 +2260,8 @@ def main() -> int:
     launches.update({k: v for k, v in svc_launches.items()
                      if k != "assign_clusters"})
     launches.update(lm_launches)
+    launches.update({k: v for k, v in dist_launches.items()
+                     if k.endswith("_cross")})
     for row in rows:
         row["launches"] = launches[row["name"]]
         log(json.dumps({"kernel": row["name"], "ms": row["ms"],
@@ -1878,6 +2273,8 @@ def main() -> int:
                         "launches_service_path": svc_launches.get(
                             row["name"]),
                         "launches_lm_path": lm_launches.get(row["name"]),
+                        "launches_distributed_path": dist_launches.get(
+                            row["name"]),
                         "max_err": row["max_abs_err"],
                         "library_ms": row["library_ms"],
                         "library_call": row.get("library_call"),
@@ -1890,6 +2287,10 @@ def main() -> int:
                         "simt_block_error": row.get("simt_block_error"),
                         "sass": row.get("sass"),
                         "rechecks": row.get("rechecks"),
+                        "ring_rechecks_per_pair": row.get(
+                            "ring_rechecks_per_pair"),
+                        "device_ms": row.get("device_ms"),
+                        "host_us": row.get("host_us"),
                         "shapes": row.get("shapes"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

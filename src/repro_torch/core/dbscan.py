@@ -191,9 +191,32 @@ def fit_resumable(
     never be core points (with min_pts=1 an isolated pad row would
     otherwise seed a phantom singleton cluster).
     """
-    n = x.shape[0]
-    dev = x.device
     deg = _degree(x, cfg)            # kernel launch 1 (main loop kernel)
+    return expand_clusters(
+        deg, lambda frontier: _expand(x, frontier, cfg), cfg, token,
+        state=state, valid_mask=valid_mask, on_progress=on_progress,
+        on_state=on_state, state_interval=state_interval)
+
+
+def expand_clusters(
+    deg: torch.Tensor,
+    expand: Callable[[torch.Tensor], torch.Tensor],
+    cfg: DBSCANConfig,
+    token: Optional[CancellationToken] = None,
+    *,
+    state: Optional[DBSCANRunState] = None,
+    valid_mask: Optional[torch.Tensor] = None,
+    on_progress: Optional[Callable[[int, int], None]] = None,
+    on_state: Optional[Callable[[DBSCANRunState], None]] = None,
+    state_interval: int = 8,
+) -> Tuple[DBSCANResult, Optional[DBSCANRunState]]:
+    """:func:`fit_resumable`'s BFS host loop, from the points' eps-degrees
+    ``deg`` (n,) and ``expand(frontier) -> reached``, one expansion launch
+    a call (the distributed lane passes its ring's).  Same arguments and
+    result as :func:`fit_resumable`; the state lives on ``deg``'s device.
+    """
+    n = deg.shape[0]
+    dev = deg.device
     core = deg >= cfg.min_pts
     if valid_mask is not None:
         core = core & torch.as_tensor(valid_mask, dtype=torch.bool, device=dev)
@@ -233,7 +256,7 @@ def fit_resumable(
             if _poll():
                 cancelled = True
                 break
-            reached = _expand(x, frontier, cfg)  # expansion kernel launch
+            reached = expand(frontier)  # expansion kernel launch
             nexp += 1
             new = reached & (labels == 0)
             labels = torch.where(new, cid, labels)

@@ -110,6 +110,21 @@ def kmeans_step(x, c, cfg: KMeansConfig):
     return assign, c_new, shift, torch.sum(d2)
 
 
+def update_from_partials(c, sums, counts):
+    """(new centroids, displacement) from the masked sums and counts."""
+    c_new = _new_centroids(sums, counts, c)
+    return c_new, torch.sum(torch.abs(c_new - c))
+
+
+def masked_partials(x, c, mask, cfg: KMeansConfig):
+    """(assign, masked sums (k, d), counts (k,), inertia) of the two-pass
+    step over x's rows, before the update."""
+    assign, d2 = _assign(x, c, cfg)
+    w = mask.to(torch.float32)
+    sums, counts = _weighted_sums(x, assign, cfg.k, w)
+    return assign, sums, counts, torch.sum(d2 * w)
+
+
 def masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
     """Lloyd step over a padded batch item: masked-out rows carry no weight.
 
@@ -117,12 +132,8 @@ def masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
     padded rows are still assigned but contribute zero to the centroid
     sums, counts, and inertia.
     """
-    assign, d2 = _assign(x, c, cfg)
-    w = mask.to(torch.float32)
-    sums, counts = _weighted_sums(x, assign, cfg.k, w)
-    c_new = _new_centroids(sums, counts, c)
-    shift = torch.sum(torch.abs(c_new - c))
-    return assign, c_new, shift, torch.sum(d2 * w)
+    assign, sums, counts, inertia = masked_partials(x, c, mask, cfg)
+    return (assign, *update_from_partials(c, sums, counts), inertia)
 
 
 def fused_masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
@@ -134,9 +145,7 @@ def fused_masked_kmeans_step(x, c, mask, cfg: KMeansConfig):
     Same (assign, c_new, shift, inertia) contract as the two-pass step.
     """
     assign, sums, counts, inertia = fused_masked_assign_update(x, c, mask)
-    c_new = _new_centroids(sums, counts, c)
-    shift = torch.sum(torch.abs(c_new - c))
-    return assign, c_new, shift, inertia
+    return (assign, *update_from_partials(c, sums, counts), inertia)
 
 
 def masked_step_fn(cfg: KMeansConfig):

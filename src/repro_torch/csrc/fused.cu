@@ -54,6 +54,11 @@
 //   the same bits on every run and every card.
 // - Counts are fp32 (as in the reference) and exact up to 2^24 rows, which
 //   the wrapper enforces.
+// - The passes also run apart (fused_masked_partials, fused_reduce_partials)
+//   for the distributed lane: shards of an item cut at multiples of
+//   tiles_per_block * tm rows, each through pass 1 with the whole item's
+//   tiles_per_block, write the whole launch's partials block for block,
+//   and one pass 2 over them gives its sums bit for bit.
 
 #include "assign_common.cuh"
 
@@ -298,19 +303,17 @@ size_t fused_smem_bytes(int d, int tm, int nt, int slots, int wide,
          kStages * sizeof(uint64_t);
 }
 
-// x: (n, d) f32, c: (k, d) f32, mask: (n,) bool, all contiguous on the
-// current device; n >= 1.  tm, nt, resident, tiles_per_block and wide as
-// for assign_clusters; acc_k centroids' sums fit the shared memory at a
-// time.  cpack: centroid_pack_floats(k, d, nt) f32 scratch; part:
-// blocks * (k*d + k + 1) f32 scratch, blocks = ceil(ceil(n / tm) /
-// tiles_per_block); stats: 2 u64 scratch.  Writes idx (n,) i32 and
-// out = [sums (k*d) | counts (k) | inertia (1)] f32 on `stream`.  Returns 0
-// or an error code for kernel_error_string; does not synchronise.
-int fused_masked_assign_update(const void* x, const void* c, const void* mask,
-                               int n, int k, int d, int tm, int nt,
-                               int resident, int tiles_per_block, int wide,
-                               int acc_k, void* cpack, void* idx, void* part,
-                               void* out, void* stats, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// Pass 1 (pack_centroids + the partials kernel): part gets one partial a
+// block, *blocks their number.
+int launch_partials(const void* x, const void* c, const void* mask, int n,
+                    int k, int d, int tm, int nt, int resident,
+                    int tiles_per_block, int wide, int acc_k, void* cpack,
+                    void* idx, void* part, void* stats, cudaStream_t s,
+                    int* blocks) {
   const Plan p{tm, resident, tiles_per_block, wide};
   if (const int err = check_plan(p, nt)) return err;
   if (acc_k < 1) return (int)cudaErrorInvalidValue;
@@ -329,24 +332,75 @@ int fused_masked_assign_update(const void* x, const void* c, const void* mask,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
   pack_centroids<<<nkc, 256, 0, s>>>((const float*)c, k, d, nt,
                                      (float*)cpack,
                                      (unsigned long long*)stats);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int tiles = (n + tm - 1) / tm;
-  const int blocks = (tiles + p.tiles_per_block - 1) / p.tiles_per_block;
-  kernel<<<blocks, kThreads, smem, s>>>(
+  *blocks = (tiles + p.tiles_per_block - 1) / p.tiles_per_block;
+  kernel<<<*blocks, kThreads, smem, s>>>(
       xmap, (const float*)x, (const unsigned char*)mask, (const float*)cpack,
       n, k, d, p, how, acc_k, (int*)idx, (float*)part,
       (unsigned long long*)stats);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int stride = k * d + k + 1;
+  return (int)cudaGetLastError();
+}
+
+int launch_reduce(const void* part, int blocks, int stride, void* out,
+                  cudaStream_t s) {
   reduce_partials_kernel<<<(stride + 31) / 32, 32 * kReduceWarps, 0, s>>>(
       (const float*)part, blocks, stride, (float*)out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (n, d) f32, c: (k, d) f32, mask: (n,) bool, all contiguous on the
+// current device; n >= 1.  tm, nt, resident, tiles_per_block and wide as
+// for assign_clusters; acc_k centroids' sums fit the shared memory at a
+// time.  cpack: centroid_pack_floats(k, d, nt) f32 scratch; part:
+// blocks * (k*d + k + 1) f32 scratch, blocks = ceil(ceil(n / tm) /
+// tiles_per_block); stats: 2 u64 scratch.  Writes idx (n,) i32 and
+// out = [sums (k*d) | counts (k) | inertia (1)] f32 on `stream`.  Returns 0
+// or an error code for kernel_error_string; does not synchronise.
+int fused_masked_assign_update(const void* x, const void* c, const void* mask,
+                               int n, int k, int d, int tm, int nt,
+                               int resident, int tiles_per_block, int wide,
+                               int acc_k, void* cpack, void* idx, void* part,
+                               void* out, void* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int blocks = 0;
+  const int err = launch_partials(x, c, mask, n, k, d, tm, nt, resident,
+                                  tiles_per_block, wide, acc_k, cpack, idx,
+                                  part, stats, s, &blocks);
+  if (err) return err;
+  return launch_reduce(part, blocks, k * d + k + 1, out, s);
+}
+
+// Pass 1 alone, as fused_masked_assign_update without out: writes idx and
+// part (one partial a block of tiles_per_block tiles).  A launch over the
+// rows of a whole item and launches over its cuts at multiples of
+// tiles_per_block * tm rows write the same partials, block for block: the
+// distributed lane's shards (core/distributed.py).
+int fused_masked_partials(const void* x, const void* c, const void* mask,
+                          int n, int k, int d, int tm, int nt, int resident,
+                          int tiles_per_block, int wide, int acc_k,
+                          void* cpack, void* idx, void* part, void* stats,
+                          void* stream) {
+  int blocks = 0;
+  return launch_partials(x, c, mask, n, k, d, tm, nt, resident,
+                         tiles_per_block, wide, acc_k, cpack, idx, part,
+                         stats, (cudaStream_t)stream, &blocks);
+}
+
+// Pass 2 alone: out[e] = the sum over `blocks` partials of part[b * stride
+// + e], in fused_masked_assign_update's order.
+int fused_reduce_partials(const void* part, int blocks, int stride, void* out,
+                          void* stream) {
+  if (blocks < 1 || stride < 1) return (int)cudaErrorInvalidValue;
+  return launch_reduce(part, blocks, stride, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

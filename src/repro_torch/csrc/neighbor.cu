@@ -125,6 +125,16 @@
 //    neighbor_kernel.  No path runs the degree at d > 9 (the paper's
 //    DBSCAN widths are 2 to 8); the card tests hold it at 64 and 226.
 //
+// 7. The cross entries (epsilon_degree_cross, expand_frontier_cross): rows
+//    of one point set against the columns of another, the distributed
+//    lane's ring step (core/distributed.py: each shard's rows against the
+//    column shard it holds).  The rows' A vectors and the columns' B
+//    vectors are packed by two pack_points calls, each with its own norms,
+//    tile maxima and sentinel row; the rest is items 1-5 on the rectangle
+//    (the triangle needs rows = columns).  d2 is computed as the plain
+//    version sums it, so the counts summed over any split of the columns
+//    (and the flags OR-ed) are epsilon_degree's and expand_frontier's bits.
+//
 // Forked from assign_common.cuh rather than shared: the packing (a
 // threshold test needs the norms inside the product, the argmin search
 // adds them afterwards), A from shared memory (the rows stay resident for
@@ -175,7 +185,9 @@ __device__ __forceinline__ float nanmax(float a, float b) {
 // Also writes each tile's largest r (NaN if any is NaN: the degree's column
 // tiles are these tiles) and zeroes the result (out_bytes a point) and the
 // two stats words.  The norms are summed in any order (the window bounds
-// any order).
+// any order).  A null apack, bpack, out or stats is skipped: the cross
+// entries pack the rows' A vectors and the columns' B vectors in two calls
+// (item 7).
 __global__ void __launch_bounds__(kThreads)
 pack_points(const float* __restrict__ x, int n, int d, float eps2,
             float* __restrict__ apack, float* __restrict__ bpack,
@@ -203,7 +215,7 @@ pack_points(const float* __restrict__ x, int n, int d, float eps2,
 #pragma unroll
     for (int o = 16; o; o >>= 1) r = nanmax(r, __shfl_xor_sync(0xffffffffu, r, o));
     if (lane == 0) part[warp] = r;
-    if (p < n && (threadIdx.x & 1) == 0) {
+    if (out && p < n && (threadIdx.x & 1) == 0) {
       if (out_bytes == 4) static_cast<int*>(out)[p] = 0;
       else static_cast<unsigned char*>(out)[p] = 0;
     }
@@ -211,7 +223,7 @@ pack_points(const float* __restrict__ x, int n, int d, float eps2,
   __syncthreads();
   if (threadIdx.x == 0) {
     tmax[blockIdx.x] = nanmax(nanmax(part[0], part[1]), nanmax(part[2], part[3]));
-    if (blockIdx.x == 0) stats[0] = stats[1] = 0ull;
+    if (blockIdx.x == 0 && stats) stats[0] = stats[1] = 0ull;
   }
   for (int e = threadIdx.x; e < kTile * kd; e += kThreads) {
     const int pl = e / kd, k = e - pl * kd, p = p0 + pl;
@@ -235,8 +247,8 @@ pack_points(const float* __restrict__ x, int n, int d, float eps2,
       av = q < 2 ? part_v : 1.f;
       bv = q < 2 ? 1.f : part_v;
     }
-    apack[(size_t)p * kd + k] = av;
-    bpack[(size_t)p * kd + k] = bv;
+    if (apack) apack[(size_t)p * kd + k] = av;
+    if (bpack) bpack[(size_t)p * kd + k] = bv;
   }
 }
 
@@ -288,11 +300,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// d2 of points i and j, exactly as the plain version sums it.
-__device__ __forceinline__ float exact_d2(const float* __restrict__ x, int i,
-                                          int j, int d) {
-  const float* a = x + (size_t)i * d;
-  const float* b = x + (size_t)j * d;
+// d2 of row i of xa and row j of xb, exactly as the plain version sums it.
+__device__ __forceinline__ float exact_d2(const float* __restrict__ xa, int i,
+                                          const float* __restrict__ xb, int j,
+                                          int d) {
+  const float* a = xa + (size_t)i * d;
+  const float* b = xb + (size_t)j * d;
   float s = 0.f;
   for (int f = 0; f < d; ++f) {
     const float t = __fsub_rn(__ldg(a + f), __ldg(b + f));
@@ -334,15 +347,19 @@ gather_frontier(const unsigned char* __restrict__ front, int n, int slice_len,
   if (threadIdx.x == 0) count[blockIdx.x] = total;
 }
 
+// Rows are points 0 .. n - 1 of x, columns points 0 .. nc - 1 of xc; both
+// are the same points except in the cross entries (item 7).
 struct Args {
   const float* x;
-  const float* apack;
-  const float* bpack;
-  const float* rnorm;
-  const float* tmax;           // largest r of each 64-point tile
+  const float* xc;
+  const float* apack;          // the rows' A vectors
+  const float* bpack;          // the columns' B vectors
+  const float* rnorm;          // the rows' r
+  const float* rnorm_c;        // the columns' r
+  const float* tmax;           // largest r of each 64-column tile
   const int* list;             // expansion: the frontier, slice by slice
   const int* count;            //   and how many points each slice holds
-  int n, d, slice_len, row_groups, slices;
+  int n, nc, d, slice_len, row_groups, slices;
   float eps2;
   int* deg;                    // degree
   unsigned char* reach;        // expansion
@@ -474,7 +491,8 @@ neighbor_kernel(const Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int rg = blockIdx.x % a.row_groups, sl = blockIdx.x / a.row_groups;
   const int row0 = rg * kTile * R;
-  const int c0 = sl * a.slice_len, c1 = min(n, c0 + a.slice_len);
+  const int nc = a.nc;
+  const int c0 = sl * a.slice_len, c1 = min(nc, c0 + a.slice_len);
   const int ncols = EXPAND ? a.count[sl] : c1 - c0;
   if (ncols <= 0) return;
   const int* list = a.list + c0;
@@ -504,11 +522,11 @@ neighbor_kernel(const Args a) {
     const int tt = q / nb, b = q - tt * nb, st = q % kRing;
     auto pt = [&](int jj) {
       const int k = tt * kTile + jj;
-      return k < ncols ? col(k) : n;
+      return k < ncols ? col(k) : nc;
     };
     copy_box<KS ? 2 * KS : 8>(ring + st * kBoxFloats, a.bpack, kd, b, pt);
     if (EXPAND && b == nb - 1 && tid < kTile) {
-      cp_async4(smem_u32(rn_s + st * kTile + tid), a.rnorm + pt(tid), 4);
+      cp_async4(smem_u32(rn_s + st * kTile + tid), a.rnorm_c + pt(tid), 4);
     }
   };
 #pragma unroll
@@ -556,7 +574,8 @@ neighbor_kernel(const Args a) {
       if (EXPAND && ((hit >> (2 * r + h)) & 1u)) continue;
       const int jj = 8 * (bit >> 2) + 2 * t + (bit & 1);
       const int i = row0 + kTile * r + 16 * warp + g + 8 * h;
-      const bool in = exact_d2(a.x, i, col(tt * kTile + jj), d) <= eps2;
+      const bool in =
+          exact_d2(a.x, i, a.xc, col(tt * kTile + jj), d) <= eps2;
       ++rechecks;
       if constexpr (EXPAND) {
         if (in) hit |= 1u << (2 * r + h);
@@ -847,7 +866,7 @@ degree_tri_kernel(const Args a) {
           const int i = ir + 8 * h, j = jc + 8 * (bit >> 2) + (bit & 1);
           if (j < i) continue;   // counted from the other side
           ++rechecks;
-          if (exact_d2(a.x, i, j, d) <= eps2) {
+          if (exact_d2(a.x, i, a.x, j, d) <= eps2) {
             if (h) cnt[r][1] += 1.f;
             else cnt[r][0] += 1.f;
             if (j > i) atomicAdd(a.deg + j, 1);
@@ -892,20 +911,22 @@ using Kernel = void (*)(const Args);
 // 1 and 4 were slower on an H100, PERF.md), one group for wide rows.
 constexpr int kGroups = 2;
 
-// At d <= 9 the degree takes the triangle, the expansion the rectangle;
-// wide rows take the rectangle, box by box.
+// At d <= 9 the degree takes the triangle (the rectangle across two point
+// sets), the expansion the rectangle; wide rows take the rectangle, box by
+// box.
 template <bool EXPAND>
-Kernel kernel_for(int d) {
+Kernel kernel_for(int d, bool cross) {
   if (pk_boxes(d) > 1) return neighbor_kernel<1, 0, EXPAND>;
+  const bool rect = EXPAND || cross;
   switch (pk_ksteps(d)) {
-    case 1: return EXPAND ? neighbor_kernel<kGroups, 1, true>
-                          : degree_tri_kernel<kGroups, 1>;
-    case 2: return EXPAND ? neighbor_kernel<kGroups, 2, true>
-                          : degree_tri_kernel<kGroups, 2>;
-    case 3: return EXPAND ? neighbor_kernel<kGroups, 3, true>
-                          : degree_tri_kernel<kGroups, 3>;
-    default: return EXPAND ? neighbor_kernel<kGroups, 4, true>
-                           : degree_tri_kernel<kGroups, 4>;
+    case 1: return rect ? neighbor_kernel<kGroups, 1, EXPAND>
+                        : degree_tri_kernel<kGroups, 1>;
+    case 2: return rect ? neighbor_kernel<kGroups, 2, EXPAND>
+                        : degree_tri_kernel<kGroups, 2>;
+    case 3: return rect ? neighbor_kernel<kGroups, 3, EXPAND>
+                        : degree_tri_kernel<kGroups, 3>;
+    default: return rect ? neighbor_kernel<kGroups, 4, EXPAND>
+                         : degree_tri_kernel<kGroups, 4>;
   }
 }
 
@@ -913,15 +934,15 @@ __host__ __device__ inline int groups_for(int d) {
   return pk_boxes(d) > 1 ? 1 : kGroups;
 }
 
-// How a launch over n points of d features is cut (the wrappers read it
-// through neighbor_plan).  Rows: groups_for(d) groups of 64 a block.  The
-// degree at d <= 9 takes the triangle: a block pairs row groups k and
-// RG - 1 - k, and their column tiles are cut into enough slices for
-// kTargetBlocks blocks; a row then counts at most 64 columns a unit and
-// under 2 n / slices in all, exact in fp32 below 2^24.  Otherwise the
-// columns are cut into slices of a multiple of 64 points (below 2^24),
-// enough for kTargetBlocks blocks, so that the grid fills the card at the
-// service's small requests too.
+// How a launch over n rows and nc columns of d features is cut (the
+// wrappers read it through neighbor_plan).  Rows: groups_for(d) groups of
+// 64 a block.  The degree over one point set (nc = n) at d <= 9 takes the
+// triangle: a block pairs row groups k and RG - 1 - k, and their column
+// tiles are cut into enough slices for kTargetBlocks blocks; a row then
+// counts at most 64 columns a unit and under 2 n / slices in all, exact in
+// fp32 below 2^24.  Otherwise the columns are cut into slices of a multiple
+// of 64 points (below 2^24), enough for kTargetBlocks blocks, so that the
+// grid fills the card at the service's small requests too.
 constexpr int kTargetBlocks = 4 * 132;   // four per SM of an H100
 constexpr long long kMaxSlice = 1 << 24;
 
@@ -931,12 +952,12 @@ struct NeighborPlan {
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-NeighborPlan plan_for(int n, int d, bool expand) {
+NeighborPlan plan_for(int n, int nc, int d, bool expand, bool cross) {
   NeighborPlan p;
   p.groups = groups_for(d);
   p.row_groups = cdiv(n, kTile * p.groups);
-  p.triangle = !expand && pk_boxes(d) == 1;
-  const int tiles = cdiv(n, kTile);
+  p.triangle = !expand && !cross && pk_boxes(d) == 1;
+  const int tiles = cdiv(nc, kTile);
   if (p.triangle) {
     const int pairs = (p.row_groups + 1) / 2;
     p.slices = std::min(std::max({1, cdiv(kTargetBlocks, pairs),
@@ -946,28 +967,35 @@ NeighborPlan plan_for(int n, int d, bool expand) {
     p.blocks = pairs * p.slices;
   } else {
     const int slices = std::max({1, cdiv(kTargetBlocks, p.row_groups),
-                                 cdiv(n, kMaxSlice)});
-    p.slice_len = kTile * cdiv(cdiv(n, std::min(slices, tiles)), kTile);
-    p.slices = cdiv(n, p.slice_len);
+                                 cdiv(nc, kMaxSlice)});
+    p.slice_len = kTile * cdiv(cdiv(nc, std::min(slices, tiles)), kTile);
+    p.slices = cdiv(nc, p.slice_len);
     p.blocks = p.row_groups * p.slices;
   }
   return p;
 }
 
-// The scratch of one call, in floats: both packs, rnorm (n + 1), the tile
-// maxima (one per 64 points, the sentinel's tile included), and for the
-// expansion the frontier list (n) and one count a slice.
-size_t scratch_floats(int n, int d, bool expand) {
-  return 2 * (size_t)(n + 1) * pk_floats(d) + (n + 1) + (n + kTile) / kTile +
-         (expand ? (size_t)n + plan_for(n, d, true).slices : 0);
+// The scratch of one call, in floats: the rows' pack and the columns' (one
+// pack of both vectors when they are one point set), the rows' r (n + 1)
+// and tile maxima (one per 64 points, the sentinel's tile included), the
+// columns' (cross only), and for the expansion the frontier list (nc) and
+// one count a slice.
+size_t scratch_floats(int n, int nc, int d, bool expand, bool cross) {
+  return (size_t)(n + 1) * pk_floats(d) + (size_t)(nc + 1) * pk_floats(d) +
+         (n + 1) + (n + kTile) / kTile +
+         (cross ? (size_t)(nc + 1) + (nc + kTile) / kTile : 0) +
+         (expand ? (size_t)nc + plan_for(n, nc, d, true, cross).slices : 0);
 }
 
-int launch(bool expand, const void* x, const void* front, int n, int d,
-           float eps2, void* scratch, void* out, void* stats_out,
-           void* stream) {
-  if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  const NeighborPlan p = plan_for(n, d, expand);
-  const Kernel kernel = expand ? kernel_for<true>(d) : kernel_for<false>(d);
+// cross: rows x (n points) against columns xc (nc points), two packs;
+// otherwise xc is x and nc is n, one pack.
+int launch(bool expand, bool cross, const void* x, int n, const void* xc,
+           int nc, const void* front, int d, float eps2, void* scratch,
+           void* out, void* stats_out, void* stream) {
+  if (n < 1 || nc < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const NeighborPlan p = plan_for(n, nc, d, expand, cross);
+  const Kernel kernel =
+      expand ? kernel_for<true>(d, cross) : kernel_for<false>(d, cross);
   const size_t smem = smem_bytes(d, p.groups);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -976,23 +1004,34 @@ int launch(bool expand, const void* x, const void* front, int n, int d,
   unsigned long long* stats = (unsigned long long*)stats_out;
   float* apack = (float*)scratch;
   float* bpack = apack + (size_t)(n + 1) * pk_floats(d);
-  float* rnorm = bpack + (size_t)(n + 1) * pk_floats(d);
+  float* rnorm = bpack + (size_t)(nc + 1) * pk_floats(d);
   float* tmax = rnorm + (n + 1);
-  int* list = reinterpret_cast<int*>(tmax + (n + kTile) / kTile);
-  int* count = list + n;
+  float* rnorm_c = cross ? tmax + (n + kTile) / kTile : rnorm;
+  float* tmax_c = cross ? rnorm_c + (nc + 1) : tmax;
+  int* list = reinterpret_cast<int*>(cross ? tmax_c + (nc + kTile) / kTile
+                                           : tmax + (n + kTile) / kTile);
+  int* count = list + nc;
   pack_points<<<(n + kTile) / kTile, kThreads, 0, s>>>(
-      (const float*)x, n, d, eps2, apack, bpack, rnorm, tmax, out,
-      expand ? 1 : 4, stats);
+      (const float*)x, n, d, eps2, apack, cross ? nullptr : bpack, rnorm,
+      tmax, out, expand ? 1 : 4, stats);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (expand) {
-    gather_frontier<<<p.slices, kGather, 0, s>>>((const unsigned char*)front,
-                                                 n, p.slice_len, list, count);
+  if (cross) {
+    pack_points<<<(nc + kTile) / kTile, kThreads, 0, s>>>(
+        (const float*)xc, nc, d, eps2, nullptr, bpack, rnorm_c, tmax_c,
+        nullptr, 0, nullptr);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const Args args{(const float*)x, apack, bpack, rnorm, tmax, list, count, n,
-                  d, p.slice_len, p.row_groups, p.slices, eps2,
+  if (expand) {
+    gather_frontier<<<p.slices, kGather, 0, s>>>((const unsigned char*)front,
+                                                 nc, p.slice_len, list, count);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Args args{(const float*)x, (const float*)xc, apack, bpack, rnorm,
+                  rnorm_c, tmax_c, list, count, n, nc, d, p.slice_len,
+                  p.row_groups, p.slices, eps2,
                   expand ? nullptr : (int*)out,
                   expand ? (unsigned char*)out : nullptr, stats};
   kernel<<<p.blocks, kThreads, smem, s>>>(args);
@@ -1006,19 +1045,21 @@ extern "C" {
 // Shared memory one block needs (bytes) for feature width d.
 size_t neighbor_smem_bytes(int d) { return smem_bytes(d, groups_for(d)); }
 
-// The plan of one launch: groups, row_groups, slices, slice_len, triangle
-// (0 or 1) and blocks, written to out[0..5].
-void neighbor_plan(int n, int d, int expand, int* out) {
-  const NeighborPlan p = plan_for(n, d, expand != 0);
+// The plan of one launch over n points (cross: n rows against nc columns):
+// groups, row_groups, slices, slice_len, triangle (0 or 1) and blocks,
+// written to out[0..5].
+void neighbor_plan(int n, int nc, int d, int expand, int cross, int* out) {
+  const NeighborPlan p = plan_for(n, cross ? nc : n, d, expand != 0,
+                                  cross != 0);
   const int v[6] = {p.groups, p.row_groups, p.slices, p.slice_len,
                     p.triangle, p.blocks};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 // Floats of one call's scratch (packs, norms, tile maxima, the expansion's
-// frontier lists).
-size_t neighbor_scratch_floats(int n, int d, int expand) {
-  return scratch_floats(n, d, expand != 0);
+// frontier lists), as neighbor_plan's arguments.
+size_t neighbor_scratch_floats(int n, int nc, int d, int expand, int cross) {
+  return scratch_floats(n, cross ? nc : n, d, expand != 0, cross != 0);
 }
 
 // x: (n, d) f32 contiguous, n >= 1; scratch: neighbor_scratch_floats f32,
@@ -1027,7 +1068,8 @@ size_t neighbor_scratch_floats(int n, int d, int expand) {
 // or an error code for kernel_error_string; does not synchronise.
 int epsilon_degree(const void* x, int n, int d, float eps2, void* scratch,
                    void* deg, void* stats, void* stream) {
-  return launch(false, x, nullptr, n, d, eps2, scratch, deg, stats, stream);
+  return launch(false, false, x, n, x, n, nullptr, d, eps2, scratch, deg,
+                stats, stream);
 }
 
 // As epsilon_degree, with front (n,) bool (one byte each, contiguous);
@@ -1035,7 +1077,28 @@ int epsilon_degree(const void* x, int n, int d, float eps2, void* scratch,
 int expand_frontier(const void* x, const void* front, int n, int d,
                     float eps2, void* scratch, void* reach, void* stats,
                     void* stream) {
-  return launch(true, x, front, n, d, eps2, scratch, reach, stats, stream);
+  return launch(true, false, x, n, x, n, front, d, eps2, scratch, reach,
+                stats, stream);
+}
+
+// The cross entries (item 7): rows xr (nr, d) against columns xc (nc, d),
+// both f32 contiguous, nr, nc >= 1.  deg[i] = #{ j < nc : d2(xr_i, xc_j)
+// <= eps^2 } (nr,) i32; reach[i] = any_j (front[j] and d2(xr_i, xc_j) <=
+// eps^2) (nr,) bool, front (nc,) bool.  Scratch and plan as above with
+// cross = 1.
+int epsilon_degree_cross(const void* xr, int nr, const void* xc, int nc, int d,
+                         float eps2, void* scratch, void* deg, void* stats,
+                         void* stream) {
+  return launch(false, true, xr, nr, xc, nc, nullptr, d, eps2, scratch, deg,
+                stats, stream);
+}
+
+int expand_frontier_cross(const void* xr, int nr, const void* xc,
+                          const void* front, int nc, int d, float eps2,
+                          void* scratch, void* reach, void* stats,
+                          void* stream) {
+  return launch(true, true, xr, nr, xc, nc, front, d, eps2, scratch, reach,
+                stats, stream);
 }
 
 }  // extern "C"

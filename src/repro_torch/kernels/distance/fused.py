@@ -15,31 +15,52 @@ raises — there is no fallback.  ``fused_masked_assign_update.launches``
 counts kernel launches (plain runs do not count);
 ``fused_masked_assign_update.recheck_stats`` holds the last launch's count
 of exact rechecks (``ops.rechecks`` reads it).
+
+The two passes also run apart, for the distributed lane's shards
+(``core/distributed.py``): :func:`fused_masked_partials` is pass 1 over
+one shard's rows with the whole item's blocks (:func:`block_rows`), and
+:func:`reduce_partials` is pass 2 over every shard's partials in block
+order.  Shards cut at multiples of ``block_rows`` write the whole launch's
+partials, block for block, so the reduced sums are the one launch's bits
+whatever the number of shards.  A pass-1 launch adds one to
+``fused_masked_assign_update.launches`` (it is the fused kernel);
+``reduce_partials.launches`` counts pass 2 alone.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.distance import ops
-from repro_torch.kernels.distance.ref import fused_masked_assign_update_ref
+from repro_torch.kernels.distance.ref import (
+    fused_masked_assign_update_ref,
+    fused_masked_partials_ref,
+    reduce_partials_ref,
+)
 
 # At most this many partial floats in all.
 _MAX_PARTIAL_FLOATS = 1 << 24
 # fp32 counts are exact up to 2^24 rows.
 MAX_ROWS = 1 << 24
 
-__all__ = ["fused_masked_assign_update", "fused_masked_assign_update_ref"]
+__all__ = ["block_rows", "fused_masked_assign_update",
+           "fused_masked_assign_update_ref", "fused_masked_partials",
+           "fused_masked_partials_ref", "reduce_partials",
+           "reduce_partials_ref"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_masked_assign_update": (
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
          _P, _P], ctypes.c_int),
+    "fused_masked_partials": (
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+         _P], ctypes.c_int),
+    "fused_reduce_partials": ([_P, _I, _I, _P, _P], ctypes.c_int),
     "fused_smem_bytes": ([_I, _I, _I, _I, _I, _I], ctypes.c_size_t),
     "centroid_pack_floats": ([_I, _I, _I], ctypes.c_size_t),
 }
@@ -95,6 +116,14 @@ def _plan(n: int, k: int, d: int) -> Tuple[ops.Plan, int]:
     return p, acc_k
 
 
+def block_rows(n: int, k: int, d: int) -> int:
+    """Rows of one pass-1 block of the fused step over n rows
+    (tiles_per_block x tm): the cuts that leave every block's partial
+    sums as they are."""
+    p, _ = _plan(n, k, d)
+    return p.tiles_per_block * p.tm
+
+
 def launch_shape(n: int, k: int, d: int) -> Tuple[int, int, int]:
     """(tiles_per_block, blocks, acc_k) of pass 1 for this problem.
 
@@ -106,7 +135,11 @@ def launch_shape(n: int, k: int, d: int) -> Tuple[int, int, int]:
     return p.tiles_per_block, p.blocks, acc_k
 
 
-def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
+def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor,
+            rows_per_block: Optional[int] = None):
+    """Pass 1 over x, then pass 2 (``rows_per_block`` None: the plan's
+    own blocks), or pass 1 alone with blocks of ``rows_per_block`` rows;
+    returns (idx, out) or (idx, part (blocks, stride))."""
     n, d = x.shape
     k = c.shape[0]
     stride = k * d + k + 1
@@ -114,6 +147,13 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f"shape too large for int32 indexing: n={n}, k={k}, "
                          f"d={d}")
     p, acc_k = _plan(n, k, d)
+    if rows_per_block is not None:
+        if rows_per_block < 1 or rows_per_block % p.tm:
+            raise ValueError(f"rows_per_block={rows_per_block} is not a "
+                             f"whole number of {p.tm}-row tiles")
+        tpb = rows_per_block // p.tm
+        tiles = -(-n // p.tm)
+        p = p._replace(tiles_per_block=tpb, blocks=-(-tiles // tpb))
     if ops.fused_bytes(d, p, acc_k) > ops.MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
     lib = _lib()
@@ -125,23 +165,29 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor):
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
     cpack = torch.empty(lib.centroid_pack_floats(k, d, p.nt),
                         dtype=torch.float32, device=x.device)
-    part = torch.empty(p.blocks * stride, dtype=torch.float32,
+    part = torch.empty((p.blocks, stride), dtype=torch.float32,
                        device=x.device)
-    out = torch.empty(stride, dtype=torch.float32, device=x.device)
     stats = torch.empty(2, dtype=torch.int64, device=x.device)
+    args = (x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d, p.tm, p.nt,
+            int(p.resident), p.tiles_per_block, int(p.wide), acc_k,
+            cpack.data_ptr(), idx.data_ptr(), part.data_ptr())
+    out = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_masked_assign_update(
-            x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d, p.tm, p.nt,
-            int(p.resident), p.tiles_per_block, int(p.wide), acc_k,
-            cpack.data_ptr(),
-            idx.data_ptr(), part.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            stream)
+        if rows_per_block is None:
+            out = torch.empty(stride, dtype=torch.float32, device=x.device)
+            err = lib.fused_masked_assign_update(
+                *args, out.data_ptr(), stats.data_ptr(), stream)
+        else:
+            err = lib.fused_masked_partials(*args, stats.data_ptr(), stream)
     _build.check(lib, err, "fused_masked_assign_update")
     fused_masked_assign_update.launches += 1
     fused_masked_assign_update.recheck_stats = stats
-    return (idx, out[:k * d].view(k, d), out[k * d:k * d + k],
-            out[k * d + k])
+    return idx, (part if out is None else out)
+
+
+def _split(out: torch.Tensor, k: int, d: int):
+    return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
 
 
 def fused_masked_assign_update(
@@ -166,10 +212,54 @@ def fused_masked_assign_update(
         zeros = torch.zeros(k * d + k + 1, dtype=torch.float32,
                             device=x.device)
         return (torch.empty(0, dtype=torch.int32, device=x.device),
-                zeros[:k * d].view(k, d), zeros[k * d:k * d + k],
-                zeros[k * d + k])
-    return _launch(x, c, mask)
+                *_split(zeros, k, d))
+    idx, out = _launch(x, c, mask)
+    return (idx, *_split(out, k, d))
+
+
+def fused_masked_partials(
+        x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor,
+        rows_per_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of :func:`fused_masked_assign_update` over x's rows in blocks
+    of ``rows_per_block`` rows (a multiple of the plan's tile, from
+    :func:`block_rows` of the whole item): (assignment int32 (n,), partials
+    f32 (blocks, k*d + k + 1), each [sums | counts | inertia] of a block's
+    unmasked rows)."""
+    _check_inputs(x, c, mask)
+    if not x.is_cuda:
+        return fused_masked_partials_ref(x, c, mask, rows_per_block)
+    n, d = x.shape
+    k = c.shape[0]
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                torch.empty((0, k * d + k + 1), dtype=torch.float32,
+                            device=x.device))
+    return _launch(x, c, mask, rows_per_block)
+
+
+def reduce_partials(part: torch.Tensor, k: int, d: int):
+    """Pass 2: the sums (k, d), counts (k,) and inertia () of the partials
+    (blocks, k*d + k + 1), added in :func:`fused_masked_assign_update`'s
+    order (eight runs of blocks in order, then the eight in order)."""
+    stride = k * d + k + 1
+    if part.dim() != 2 or part.shape[1] != stride or part.shape[0] < 1:
+        raise ValueError(f"need partials (blocks >= 1, {stride}), got "
+                         f"{tuple(part.shape)}")
+    if part.dtype != torch.float32 or not part.is_contiguous():
+        raise ValueError("partials must be contiguous float32")
+    if not part.is_cuda:
+        return reduce_partials_ref(part, k, d)
+    out = torch.empty(stride, dtype=torch.float32, device=part.device)
+    lib = _lib()
+    with torch.cuda.device(part.device):
+        stream = torch.cuda.current_stream(part.device).cuda_stream
+        err = lib.fused_reduce_partials(part.data_ptr(), part.shape[0],
+                                        stride, out.data_ptr(), stream)
+    _build.check(lib, err, "reduce_partials")
+    reduce_partials.launches += 1
+    return _split(out, k, d)
 
 
 fused_masked_assign_update.launches = 0
 fused_masked_assign_update.recheck_stats = None
+reduce_partials.launches = 0

@@ -124,6 +124,46 @@ def fused_masked_assign_update_ref(x: torch.Tensor, c: torch.Tensor,
     return idx, sums, counts, inertia
 
 
+# The fused step's pass 2 adds the blocks' partials in this many runs of
+# blocks, each in order, then the runs in order (csrc/fused.cu).
+REDUCE_RUNS = 8
+
+
+def fused_masked_partials_ref(x: torch.Tensor, c: torch.Tensor,
+                              mask: torch.Tensor, rows_per_block: int):
+    """(assignment int32 (n,), partials f32 (blocks, k*d + k + 1)): each
+    block of ``rows_per_block`` rows' [sums | counts | inertia], as
+    :func:`fused_masked_assign_update_ref` computes them for those rows."""
+    n, d = x.shape
+    k = c.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    rows = []
+    for r0 in range(0, n, rows_per_block):
+        r1 = min(n, r0 + rows_per_block)
+        idx[r0:r1], sums, counts, inertia = fused_masked_assign_update_ref(
+            x[r0:r1], c, mask[r0:r1])
+        rows.append(torch.cat([sums.reshape(-1), counts, inertia[None]]))
+    part = (torch.stack(rows) if rows else
+            torch.empty((0, k * d + k + 1), dtype=torch.float32,
+                        device=x.device))
+    return idx, part
+
+
+def reduce_partials_ref(part: torch.Tensor, k: int, d: int):
+    """(sums (k, d), counts (k,), inertia ()) of the partials, added in
+    the fused kernel's pass-2 order, every addition rounded to fp32."""
+    blocks = part.shape[0]
+    out = None
+    for w in range(REDUCE_RUNS):
+        run = torch.zeros(part.shape[1], dtype=torch.float32,
+                          device=part.device)
+        for b in range(w * blocks // REDUCE_RUNS,
+                       (w + 1) * blocks // REDUCE_RUNS):
+            run = run + part[b]
+        out = run if out is None else out + run
+    return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
+
+
 # --- a plain model of the kernels' search (tests only) ---------------------
 
 # The window's terms (csrc/assign_common.cuh derives them), one window per

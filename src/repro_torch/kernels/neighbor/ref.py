@@ -50,15 +50,7 @@ def _row_chunks(n_rows: int, n_cols: int):
 
 def epsilon_degree_ref(x: torch.Tensor, eps: float) -> torch.Tensor:
     """Number of points within eps (inclusive, self counted) per point."""
-    x = x.float()
-    n = x.shape[0]
-    eps2 = eps_squared(eps)
-    deg = torch.empty(n, dtype=torch.int32, device=x.device)
-    starts, rows = _row_chunks(n, n)
-    for r0 in starts:
-        d2 = _sq_dists(x[r0:r0 + rows], x)
-        deg[r0:r0 + rows] = (d2 <= eps2).sum(1).to(torch.int32)
-    return deg
+    return epsilon_degree_cross_ref(x, x, eps)
 
 
 def expand_frontier_ref(x: torch.Tensor, frontier: torch.Tensor,
@@ -70,18 +62,34 @@ def expand_frontier_ref(x: torch.Tensor, frontier: torch.Tensor,
     frontier at once.  Only frontier columns can reach anything, so only
     they are compared.
     """
-    x = x.float()
-    n = x.shape[0]
+    return expand_frontier_cross_ref(x, x, frontier, eps)
+
+
+def epsilon_degree_cross_ref(rows: torch.Tensor, cols: torch.Tensor,
+                             eps: float) -> torch.Tensor:
+    """Number of columns within eps (inclusive) of each row, int32
+    (n_rows,): the cross entry's plain version.  Summed over the column
+    shards of x, :func:`epsilon_degree_ref` of the rows."""
+    rows, cols = rows.float(), cols.float()
     eps2 = eps_squared(eps)
-    cols = x[frontier.bool()]
-    reach = torch.zeros(n, dtype=torch.bool, device=x.device)
+    deg = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
     if cols.shape[0] == 0:
-        return reach
-    starts, rows = _row_chunks(n, cols.shape[0])
+        return deg
+    starts, chunk = _row_chunks(rows.shape[0], cols.shape[0])
     for r0 in starts:
-        d2 = _sq_dists(x[r0:r0 + rows], cols)
-        reach[r0:r0 + rows] = (d2 <= eps2).any(1)
-    return reach
+        d2 = _sq_dists(rows[r0:r0 + chunk], cols)
+        deg[r0:r0 + chunk] = (d2 <= eps2).sum(1).to(torch.int32)
+    return deg
+
+
+def expand_frontier_cross_ref(rows: torch.Tensor, cols: torch.Tensor,
+                              front_cols: torch.Tensor,
+                              eps: float) -> torch.Tensor:
+    """Rows within eps of a column flagged in ``front_cols`` (bool
+    (n_rows,)): the cross entry's plain version.  OR-ed over the column
+    shards of x, :func:`expand_frontier_ref` of the rows."""
+    return epsilon_degree_cross_ref(
+        rows, cols.float()[front_cols.bool()], eps) > 0
 
 
 # --- a plain model of the kernels' candidate and window (tests only) -------

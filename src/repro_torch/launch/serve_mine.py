@@ -18,7 +18,9 @@ admitted.  ``--bucket-policy`` picks how batch shapes are padded (``pow2``
 consistent-hash router (``--router-port`` serves the fleet exposition,
 ``--rolling-restart`` restarts every worker one at a time afterwards);
 ``--standby HOST:PORT`` ships the single-process service's WAL to a warm
-standby for the whole run.
+standby for the whole run.  ``--oversized N`` adds N large K-Means
+requests; those over ``--device-budget-mb`` ride the ``distributed`` lane
+(sharded over the local devices).
 
 The service runs on the CUDA card unless ``--device cpu`` is given; with no
 card and no ``--device cpu`` it raises instead of running on the host (a
@@ -74,13 +76,18 @@ def request_generator(seed: int, i: int) -> torch.Generator:
 def build_workload(n_requests: int, tenants: int, algo: str, *,
                    features: int = 2, clusters: int = 4,
                    points: int = 64, seed: int = 0,
-                   min_points: Optional[int] = None):
+                   min_points: Optional[int] = None,
+                   oversized: int = 0, oversized_points: int = 1024):
     """(tenant, algo, data, params) tuples from the paper's generator.
 
     Request ``i`` draws from :func:`request_generator` ``(seed, i)``.  With
     ``min_points`` each cluster of a request has between ``min_points`` and
     ``points`` points (unequal requests pad to a shared bucket); otherwise
-    every cluster has ``points``.
+    every cluster has ``points``.  ``oversized`` appends that many
+    extra-large K-Means requests (``oversized_points`` points per cluster,
+    request ``j`` from ``(seed + 1, j)``) to the mix — with a small
+    ``--device-budget-mb`` these exceed the per-device budget and exercise
+    the distributed lane under real traffic.
     """
     cfg = dbscan.DBSCANConfig.paper_defaults(features)
     out = []
@@ -99,6 +106,11 @@ def build_workload(n_requests: int, tenants: int, algo: str, *,
             else {"k": clusters, "seed": i, "max_iters": 50}
         )
         out.append((f"tenant-{i % tenants}", this_algo, x.numpy(), params))
+    for j in range(oversized):
+        x, _, _ = make_blobs(request_generator(seed + 1, j),
+                             ClusterSpec(features, clusters, oversized_points))
+        out.append((f"tenant-{j % tenants}", "kmeans", x.numpy(),
+                    {"k": clusters, "seed": 10_000 + j, "max_iters": 50}))
     return out
 
 
@@ -173,16 +185,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where the device lanes run (default: the CUDA "
                          "card; raises without one)")
     ap.add_argument("--executor",
-                    choices=("auto", "cuda-kernel", "torch-ref", "numpy-mt"),
+                    choices=("auto", "cuda-kernel", "torch-ref", "numpy-mt",
+                             "distributed"),
                     default="auto")
     ap.add_argument("--features", type=int, default=2)
     ap.add_argument("--clusters", type=int, default=4)
     ap.add_argument("--points", type=int, default=64,
                     help="points per cluster per request")
+    ap.add_argument("--oversized", type=int, default=0,
+                    help="extra oversized K-Means requests mixed into the "
+                         "load (they bypass coalescing and ride the "
+                         "distributed lane when over the device budget)")
+    ap.add_argument("--oversized-points", type=int, default=1024,
+                    help="points per cluster for each oversized request")
     ap.add_argument("--device-budget-mb", type=float, default=None,
                     help="per-device memory budget; requests whose working "
-                         "set exceeds it are refused at admission "
-                         "(default: a fraction of the card's memory)")
+                         "set exceeds it are sharded over the local "
+                         "devices (default: a fraction of the card's "
+                         "memory)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--no-continuous", action="store_true",
@@ -314,7 +334,8 @@ def run_fleet(args, workdir: str) -> dict:
         workload = build_workload(
             args.requests, args.tenants, args.algo,
             features=args.features, clusters=args.clusters,
-            points=args.points)
+            points=args.points, oversized=args.oversized,
+            oversized_points=args.oversized_points)
         executor = None if args.executor == "auto" else args.executor
         failures = drive(router, workload, args.rate, executor,
                          ttl=args.ttl)
@@ -418,7 +439,8 @@ def run(argv: Optional[List[str]] = None) -> dict:
 
     workload = build_workload(
         args.requests, args.tenants, args.algo,
-        features=args.features, clusters=args.clusters, points=args.points)
+        features=args.features, clusters=args.clusters, points=args.points,
+        oversized=args.oversized, oversized_points=args.oversized_points)
     executor = None if args.executor == "auto" else args.executor
     # SIGTERM/SIGINT -> cooperative preemption: in-flight batches
     # checkpoint and park SUSPENDED (finish later with --resume)

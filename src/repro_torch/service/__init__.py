@@ -18,9 +18,10 @@ can be shipped to a warm standby that promotes into a live service
 (``replicate``), and the fleet tier runs N service processes behind a
 consistent-hash router that fails a SIGKILLed worker's WAL over onto a
 survivor and restarts workers one at a time (``fleet``); on the card
-every worker holds its own CUDA context on the one device.  The
-reference's distributed lane is not ported yet; a request too large for
-one device is refused at admission (``RequestTooLarge``).
+every worker holds its own CUDA context on the one device.  A
+request too large for one device goes to the ``distributed`` lane, which
+shards it over a mesh of local devices (``core/distributed.py``); a
+registry without that lane refuses it at admission (``RequestTooLarge``).
 
     client    — MiningClient + ResultHandle: the async front door
     session   — StreamingSession: checkpointed per-tenant streams
@@ -30,7 +31,7 @@ one device is refused at admission (``RequestTooLarge``).
     bucketing — pluggable batch-shape bucket policies (pow2 / linear /
                 adaptive autotuner fitted to observed request shapes)
     dispatch  — paradigm registry + plan/execute cost model
-                (cuda-kernel/torch-ref/numpy-mt)
+                (cuda-kernel/torch-ref/numpy-mt/distributed)
     exec_cache — prepared Lloyd steps per bucket shape, warmed at start
     executor  — durable batch execution: jobs + checkpoints + resume
     wal       — write-ahead admission log: admitted means durable
@@ -71,6 +72,7 @@ from repro_torch.service.dispatch import (
     EXECUTOR_DISTRIBUTED,
     EXECUTOR_NUMPY_MT,
     EXECUTOR_TORCH_REF,
+    DistributedParadigm,
     ExecutionPlan,
     ParadigmRegistry,
     TorchParadigm,
@@ -147,6 +149,7 @@ __all__ = [
     "BIG",
     "ClusteringService",
     "DeviceClass",
+    "DistributedParadigm",
     "EnergyBudgetExceeded",
     "LITTLE",
     "PowerCapPacer",

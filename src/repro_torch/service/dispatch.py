@@ -15,11 +15,14 @@ request pinned one explicitly.
                     the paper's compiled-code paradigm
     numpy-mt      — numpy across a thread pool over batch items;
                     the paper's multi-threaded CPU paradigm
-
-A fourth lane, ``distributed`` (one oversized request sharded across
-every local device), is not ported yet: the registry has no such
-paradigm, so a request over the per-device budget is refused at
-admission (``RequestTooLarge``) instead of being sharded.
+    distributed   — one oversized request sharded over a mesh of local
+                    devices (the row-sharded fused Lloyd step and the ring
+                    DBSCAN of core/distributed.py, on the same kernels);
+                    selected by the cost model when a request's working
+                    set exceeds the per-device memory budget — the regime
+                    every other paradigm would thrash or run out of
+                    memory in.  A registry without it refuses such
+                    requests at admission (``RequestTooLarge``).
 
 Dispatch is a two-phase **plan/execute** contract.  ``Paradigm.plan``
 returns an :class:`ExecutionPlan` — device placement, shard layout, padded
@@ -59,8 +62,6 @@ from repro_torch.service.energy import classify_work, device_class_for
 EXECUTOR_CUDA = "cuda-kernel"
 EXECUTOR_TORCH_REF = "torch-ref"
 EXECUTOR_NUMPY_MT = "numpy-mt"
-# No paradigm of this name is registered yet (see the module docstring);
-# the registry and the service already behave correctly without it.
 EXECUTOR_DISTRIBUTED = "distributed"
 
 # Below this many fused ops, dispatch/launch overhead dominates and the
@@ -83,8 +84,10 @@ DEFAULT_JOULES_PER_WORK = _LITTLE_CLASS.joules_per_work
 
 # DBSCAN pad isolation: padded rows sit on a far diagonal in feature 0 so
 # each pad is outside eps of every real point *and* of every other pad —
-# they come out as noise and are sliced off.  The batch executor's bucket
-# padding uses it (and a distributed paradigm's shard padding will).
+# they come out as noise and are sliced off.  One scheme shared by the
+# batch executor (bucket padding) and the distributed paradigm (shard
+# padding): the "pads can never be core/member/frontier" invariant that
+# makes sharded state slicing lossless depends on both using it.
 PAD_SPACING_FACTOR = 16.0
 
 
@@ -558,6 +561,225 @@ class NumpyMTParadigm(Paradigm):
         return RunOutcome()
 
 
+class DistributedParadigm(Paradigm):
+    """One oversized request sharded over a mesh of local devices.
+
+    K-Means runs the row-sharded masked step
+    (``distributed.make_sharded_masked_kmeans_step``): the item's rows cut
+    at the fused step's blocks, each shard's through the fused kernel's
+    pass 1 against the replicated centroids, every shard's partials added
+    by pass 2 on the mesh's first device in block order — the
+    ``cuda-kernel`` lane's step, bit for bit, at any shard count.
+    DBSCAN runs the ring (``make_ring_degree`` / ``make_ring_expand``):
+    each shard keeps its rows, the column shards rotate, and every step is
+    a launch of the cross neighbour entry, so no (n, n) adjacency and no
+    (n/p, n/p) tile is ever held.  Both loops poll the abort flag between
+    launches and snapshot state gathered to the host that does not depend
+    on the mesh's shape, so a job preempted mid-shard resumes on any mesh
+    exactly like single-device jobs do.
+
+    The reference runs this lane on its XLA math (GSPMD cannot partition a
+    Pallas call); here the kernels run it (``use_kernel=True``).  ``mesh``
+    defaults to :func:`~repro_torch.core.distributed.local_mesh` over
+    ``device``'s local devices (one ``cuda:0`` on one H100); tests and the
+    smoke pass a mesh that repeats one device to run p shards on it.
+    """
+
+    name = EXECUTOR_DISTRIBUTED
+    resumable_mid_item = True
+
+    def __init__(self, axis: str = "data",
+                 device: "torch.device | str" = "cuda",
+                 mesh=None) -> None:
+        self.axis = axis
+        self.device = torch.device(device)
+        self._mesh = mesh
+
+    def mesh(self):
+        from repro_torch.core import distributed as dist
+
+        if self._mesh is None:
+            self._mesh = dist.local_mesh(self.axis, self.device.type)
+        return self._mesh
+
+    def _config(self, algo: str, params: Dict[str, Any]) -> Any:
+        if algo == "dbscan":
+            return _dbscan_config(params, use_kernel=True)
+        return _kmeans_config(params, use_kernel=True)
+
+    def plan(self, algo, params, *, batch_size, n_max, features,
+             energy_hint=None):
+        from repro_torch.core import distributed as dist
+
+        mesh = self.mesh()
+        shards = mesh.size
+        if algo == "dbscan":
+            rows = dist.shard_rows(n_max, shards)
+        else:   # cut at the fused step's blocks, not padded
+            rows = max(b - a for a, b in dist.kmeans_bounds(
+                n_max, int(params.get("k", 8)), features, shards))
+        cost = estimate_work(algo, n_max, features, batch_size, params)
+        cls = device_class_for(self.name)
+        joules = (energy_hint * cost if energy_hint is not None
+                  else cls.modeled_joules(cost))
+        return ExecutionPlan(
+            paradigm=self.name,
+            algo=algo,
+            params=dict(params),
+            batch_size=batch_size,
+            n_max=n_max,
+            features=features,
+            devices=len(set(mesh.devices)),
+            shards=shards,
+            shard_rows=rows,
+            cost=cost,
+            device_class=cls.name,
+            modeled_joules=joules,
+            config=self._config(algo, params),
+        )
+
+    # -- shard padding -------------------------------------------------------
+
+    @staticmethod
+    def _pad_to_shards(x_pad: np.ndarray, plan: ExecutionPlan) -> np.ndarray:
+        """Grow a DBSCAN item (n_max, d) to (shards * shard_rows, d) for
+        even sharding.
+
+        Extra rows continue the executor's far-diagonal pattern (each new
+        pad sits beyond eps of every real point and every other pad), so
+        they can never be core, member, or frontier — which is what makes
+        slicing the state back to n_max lossless.  (K-Means items are not
+        padded: their shards are cut at the fused step's blocks.)
+        """
+        n_pad = plan.shards * plan.shard_rows
+        n_max = x_pad.shape[0]
+        if n_pad <= n_max:
+            return x_pad
+        out = np.zeros((n_pad, x_pad.shape[1]), np.float32)
+        out[:n_max] = x_pad
+        high = float(np.max(x_pad)) if x_pad.size else 0.0
+        far_diagonal_pad(out, n_max, float(plan.params.get("eps", 1.0)),
+                         high)
+        return out
+
+    @staticmethod
+    def _resize_dbscan_state(state: dbscan.DBSCANRunState,
+                             n: int) -> dbscan.DBSCANRunState:
+        """Slice or zero-extend per-point state to ``n`` rows.
+
+        Rows beyond n_max are shard padding: never core, member, or in the
+        frontier (see ``_pad_to_shards``), so both directions are lossless
+        — a checkpoint written on one mesh resumes on another.
+        """
+        packed = np.zeros((n,), np.int16)
+        frontier = np.zeros((n,), bool)
+        m = min(n, state.packed.shape[0])
+        packed[:m] = state.packed[:m]
+        frontier[:m] = state.frontier[:m]
+        return dbscan.DBSCANRunState(packed=packed, frontier=frontier,
+                                     cid=state.cid, nexp=state.nexp)
+
+    # -- items ---------------------------------------------------------------
+
+    def _kmeans_item(self, mesh, plan, item, token, on_item_done,
+                     on_item_state, state_interval):
+        from repro_torch.core import distributed as dist
+
+        cfg = plan.config
+        n_max = item.x_pad.shape[0]
+        mask = np.arange(n_max) < item.length
+        if item.mid_state is not None:
+            c0 = np.asarray(item.mid_state["centroids"], np.float32)
+            it0 = int(item.mid_state["iteration"])
+        else:
+            # identical seeding to the single-device paradigms: an
+            # oversized request's labels match the unsharded reference
+            c0 = kmeans.init_centroids(
+                item.seed,
+                torch.as_tensor(item.x_pad[: item.length]).to(
+                    mesh.devices[0]),
+                cfg)
+            it0 = 0
+        result, mid = dist.sharded_kmeans_fit_resumable(
+            mesh, item.x_pad, mask, cfg, token,
+            centroids=c0, start_iteration=it0,
+            on_state=lambda s: on_item_state(item.index, s),
+            state_interval=state_interval,
+        )
+        if result.cancelled:
+            return RunOutcome(suspended=True, item_index=item.index,
+                              mid_state=mid)
+        labels = result.labels.cpu().numpy().astype(np.int16)
+        on_item_done(item.index, labels, {
+            "inertia": float(result.inertia),
+            "iterations": int(result.iterations),
+            "converged": bool(result.converged),
+            "centroids": result.centroids.cpu().numpy().astype(np.float32),
+        })
+        return RunOutcome()
+
+    def _dbscan_item(self, mesh, plan, item, token, on_item_done,
+                     on_item_state, state_interval):
+        from repro_torch.core import distributed as dist
+
+        cfg = plan.config
+        n_max = item.x_pad.shape[0]
+        x_sh = self._pad_to_shards(item.x_pad, plan)
+        n_pad = x_sh.shape[0]
+        state = None
+        if item.mid_state is not None:
+            state = self._resize_dbscan_state(
+                dbscan.DBSCANRunState.from_tree(item.mid_state), n_pad)
+        valid = np.arange(n_pad) < item.length
+
+        def report(s: dbscan.DBSCANRunState) -> None:
+            # checkpoints carry the (n_max,) view — mesh-shape independent
+            on_item_state(item.index,
+                          self._resize_dbscan_state(s, n_max).as_tree())
+
+        result, run_state = dist.sharded_dbscan_fit_resumable(
+            mesh, x_sh, cfg, token,
+            state=state, valid_mask=valid,
+            on_state=report, state_interval=state_interval,
+            axis=self.axis,
+        )
+        if result.cancelled:
+            assert run_state is not None
+            return RunOutcome(
+                suspended=True, item_index=item.index,
+                mid_state=self._resize_dbscan_state(
+                    run_state, n_max).as_tree())
+        labels = result.labels[:n_max].cpu().numpy().astype(np.int16)
+        real = labels[: item.length]
+        on_item_done(item.index, labels, {
+            "n_clusters": int(real.max(initial=0)),
+            "noise": int(np.sum(real == 0)),
+            "expansions": int(result.expansions),
+        })
+        return RunOutcome()
+
+    def execute(self, plan, items, token, on_item_done, on_item_state,
+                state_interval=8, boundary_hook=None):
+        # oversized requests run one at a time across the mesh; nothing
+        # can share it, so boundary joins don't apply.  Discovery raises
+        # without a card when the lane runs on "cuda".
+        backend_mod.discover_backend(self.device.type)
+        mesh = self.mesh()
+        if plan.config is None:
+            plan = dataclasses.replace(
+                plan, config=self._config(plan.algo, plan.params))
+        run_item = (self._dbscan_item if plan.algo == "dbscan"
+                    else self._kmeans_item)
+        for item in items:
+            if _cancelled(token):
+                return RunOutcome(suspended=True)
+            outcome = run_item(mesh, plan, item, token, on_item_done,
+                               on_item_state, state_interval)
+            if outcome.suspended:
+                return outcome
+        return RunOutcome()
+
+
 # -- config plumbing ---------------------------------------------------------
 
 
@@ -754,4 +976,5 @@ def default_registry(
     reg.register(TorchParadigm(EXECUTOR_TORCH_REF, use_kernel=False,
                                device=device))
     reg.register(NumpyMTParadigm())
+    reg.register(DistributedParadigm(device=device))
     return reg

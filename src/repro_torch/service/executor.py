@@ -339,8 +339,9 @@ class BatchExecutor:
         joined = [0]
         retired = [0]
         if plan is None:
-            # resume path: re-plan on THIS host (its device and topology
-            # may differ from the host that suspended the batch)
+            # resume path: re-plan on THIS host — sharded checkpoints carry
+            # gathered, mesh-shape-independent state, so a batch suspended
+            # on a 4-shard mesh resumes correctly on 1 (or 8)
             plan = paradigm.plan(
                 jp["algo"], jp["params"], batch_size=jp["size"],
                 n_max=jp["n_max"], features=jp["features"])

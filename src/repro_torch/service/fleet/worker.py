@@ -367,7 +367,9 @@ def kernel_launches() -> Dict[str, int]:
             "fused_masked_assign_update":
                 fused.fused_masked_assign_update.launches,
             "epsilon_degree": nops.epsilon_degree.launches,
-            "expand_frontier": nops.expand_frontier.launches}
+            "expand_frontier": nops.expand_frontier.launches,
+            "epsilon_degree_cross": nops.epsilon_degree_cross.launches,
+            "expand_frontier_cross": nops.expand_frontier_cross.launches}
 
 
 # -- process entry point ------------------------------------------------------

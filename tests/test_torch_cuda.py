@@ -120,6 +120,115 @@ def test_neighbor_kernels_special_inputs(gen, d):
     assert bool((deg[900:1200] == 1).all())
 
 
+def _cross_check(x, eps, gen, splits):
+    """The cross entries over row and column shards of x (bounds in
+    ``splits``): each call equal to its plain twin, the counts summed over
+    the column shards equal to epsilon_degree_ref and the flags OR-ed equal
+    to expand_frontier_ref, bit for bit; one launch counted per call."""
+    n = x.shape[0]
+    front = (torch.rand(n, generator=gen) < 0.05).cuda()
+    cuts = list(zip(splits[:-1], splits[1:]))
+    deg = torch.zeros(n, dtype=torch.int32, device="cuda")
+    reach = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for r0, r1 in cuts:
+        for c0, c1 in cuts:
+            rows, cols, f = x[r0:r1], x[c0:c1], front[c0:c1]
+            before = (nops.epsilon_degree_cross.launches,
+                      nops.expand_frontier_cross.launches)
+            dc = nops.epsilon_degree_cross(rows, cols, eps)
+            rc = nops.expand_frontier_cross(rows, cols, f, eps)
+            assert (nops.epsilon_degree_cross.launches,
+                    nops.expand_frontier_cross.launches) == (
+                        before[0] + 1, before[1] + 1)
+            assert torch.equal(dc, nref.epsilon_degree_cross_ref(
+                rows, cols, eps))
+            assert torch.equal(rc, nref.expand_frontier_cross_ref(
+                rows, cols, f, eps))
+            deg[r0:r1] += dc
+            reach[r0:r1] |= rc
+    torch.cuda.synchronize()
+    assert torch.equal(deg, nref.epsilon_degree_ref(x, eps))
+    assert torch.equal(reach, nref.expand_frontier_ref(x, front, eps))
+
+
+@pytest.mark.parametrize("d", [1, 4, 9, 64])
+def test_neighbor_cross_entries_sum_to_the_whole(gen, d):
+    # shards of 1, 63, 64, 65 and uneven larger ones, the diagonal included
+    n = 3000
+    x = (torch.randn(n, d, generator=gen) * 3).contiguous().cuda()
+    _cross_check(x, float(d) ** 0.5, gen,
+                 [0, 1, 64, 127, 192, 1000, 2311, n])
+
+
+@pytest.mark.parametrize("d", [1, 4, 9, 64])
+def test_neighbor_cross_entries_near_ties_and_pads(gen, d):
+    # pairs at eps and one ulp either side, exact duplicates at eps = 0,
+    # non-finite rows, and a far-diagonal ladder of pads as the
+    # distributed lane writes them (the pads about a quarter of the rows,
+    # as a 100,000-point request padded to 131,072)
+    eps = float(d) ** 0.5
+    x = torch.randn(1500, d, generator=gen) * 3
+    x[7, 0] = float("nan")
+    x[8, -1] = float("inf")
+    base = x[100:101]
+    e = float(torch.tensor(float(((x[100] - x[101]) ** 2).sum())).sqrt())
+    near = torch.cat([x[101:102], torch.nextafter(x[101:102], base + 1e3),
+                      torch.nextafter(x[101:102], base - 1e3)])
+    pads = torch.zeros(500, d)
+    pads[:, 0] = float(x[10:].max()) + 16 * eps * (1 + torch.arange(500))
+    x = torch.cat([x, x[20:60], near, pads]).contiguous().cuda()
+    n = x.shape[0]
+    splits = [0, n // 4, n // 2, 3 * n // 4, n]
+    for eps_ in (eps, 0.0, e):
+        _cross_check(x, eps_, gen, splits)
+
+
+@pytest.mark.parametrize("nr,nc", [(1, 1), (64, 2048), (2048, 65), (32768,
+                                                                    32768)])
+def test_neighbor_cross_plan_takes_the_rectangle(gen, nr, nc):
+    for expand in (False, True):
+        p = nops.plan(nr, 4, expand, cols=nc)
+        assert not p.triangle
+        assert p.row_groups * 64 * p.groups >= nr
+        assert p.slice_len % 64 == 0 and p.slices * p.slice_len >= nc
+        assert (p.slices - 1) * p.slice_len < nc
+        assert p.blocks == p.row_groups * p.slices
+    x = (torch.randn(nr + nc, 4, generator=gen) * 3).cuda()
+    nops.epsilon_degree_cross(x[:nr], x[nr:], 2.0)
+    _, pairs = nops.rechecks(nops.epsilon_degree_cross)
+    assert pairs == nr * nc
+
+
+@pytest.mark.parametrize("n,k,d,cuts", [
+    (100000, 64, 32, 4), (5000, 7, 5, 3), (3000, 70, 200, 2),
+    (1048576, 64, 32, 4)])
+def test_fused_passes_over_block_cuts_are_the_whole_step(gen, n, k, d, cuts):
+    # pass 1 over cuts at the whole launch's blocks writes the whole
+    # launch's partials; pass 2 over them gives its sums, bit for bit
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    c = x[torch.randperm(n, generator=gen)[:k].cuda()].contiguous()
+    mask = (torch.arange(n) < n - 97).cuda()
+    idx, sums, counts, inertia = fops.fused_masked_assign_update(x, c, mask)
+    rows = fops.block_rows(n, k, d)
+    blocks = -(-n // rows)
+    cut = [min(n, rows * (i * blocks // cuts)) for i in range(cuts + 1)]
+    whole_idx, whole_part = fops.fused_masked_partials(x, c, mask, rows)
+    parts = [fops.fused_masked_partials(x[a:b], c, mask[a:b], rows)
+             for a, b in zip(cut[:-1], cut[1:])]
+    part = torch.cat([p for _, p in parts])
+    assert torch.equal(part, whole_part) and part.shape[0] == blocks
+    assert torch.equal(torch.cat([i for i, _ in parts]), idx)
+    assert torch.equal(whole_idx, idx)
+    before = fops.reduce_partials.launches
+    got = fops.reduce_partials(part, k, d)
+    assert fops.reduce_partials.launches == before + 1
+    for a, b in zip(got, (sums, counts, inertia)):
+        assert torch.equal(a, b)
+    # pass 2 against its plain twin, on the same partials
+    for a, b in zip(got, fops.reduce_partials_ref(part.cpu(), k, d)):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_neighbor_unaligned_rows(gen):
     # x starts 4 bytes past a 16-byte boundary (a view into a larger
     # buffer); the frontier one byte past

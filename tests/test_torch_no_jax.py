@@ -1,7 +1,8 @@
 """The port stands alone: a CPU mining job, a CPU service round trip, a
-CPU LM serving batch and the durable serving tier's modules (replication,
-the fleet and its worker entry point) in a fresh interpreter load neither
-jax nor anything of the reference package."""
+CPU LM serving batch, the durable serving tier's modules (replication,
+the fleet and its worker entry point) and the distributed lane (a ring
+degree on a mesh of two host shards, the elastic restore) in a fresh
+interpreter load neither jax nor anything of the reference package."""
 
 import os
 import subprocess
@@ -37,6 +38,12 @@ import repro_torch.service.replicate
 import repro_torch.service.fleet
 import repro_torch.service.fleet.worker
 assert repro_torch.service.fleet.worker.FleetWorker
+import torch
+from repro_torch.core import distributed
+from repro_torch.checkpoint import elastic
+mesh = distributed.Mesh(("cpu", "cpu"))
+assert distributed.ring_degree(mesh, torch.zeros(5, 2), 1.0).tolist() == [5] * 5
+assert elastic.restore_resharded
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]

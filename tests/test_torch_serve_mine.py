@@ -44,6 +44,22 @@ def test_build_workload_is_seeded_per_request():
     assert isinstance(gen, torch.Generator)
 
 
+def test_oversized_requests_ride_the_distributed_lane(tmp_path, capsys):
+    failures = serve_mine.run([
+        "--device", "cpu", "--workdir", str(tmp_path), "--requests", "4",
+        "--tenants", "2", "--algo", "mixed", "--rate", "500",
+        "--points", "24", "--oversized", "2",
+        "--device-budget-mb", "0.0625"])
+    assert failures == {"suspended": 0, "dropped": 0, "rejected": 0}
+    out = capsys.readouterr().out
+    assert "# 6 requests, p50" in out and "'distributed'" in out
+    # the oversized requests are K-Means of oversized_points a cluster
+    w = serve_mine.build_workload(1, 1, "dbscan", points=8, oversized=2,
+                                  oversized_points=32)
+    assert [(a, x.shape[0]) for _, a, x, _ in w] == [
+        ("dbscan", 32), ("kmeans", 128), ("kmeans", 128)]
+
+
 def test_main_entry_point_runs_the_cli(tmp_path, capsys):
     assert serve_mine.main([
         "--device", "cpu", "--workdir", str(tmp_path), "--requests", "2",

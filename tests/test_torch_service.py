@@ -40,6 +40,7 @@ from repro_torch.service import (
 from repro_torch.service.batcher import BatchKey, MicroBatch
 from repro_torch.service.dispatch import (
     EXECUTOR_CUDA,
+    EXECUTOR_DISTRIBUTED,
     EXECUTOR_NUMPY_MT,
     EXECUTOR_TORCH_REF,
     ItemView,
@@ -160,8 +161,9 @@ def test_service_end_to_end_multi_tenant(tmp_path):
     snap = svc.metrics_snapshot()
     assert snap["requests"] == 5 and snap["cache_hits"] == 1
     assert snap["batches"] >= 1 and 0.0 < snap["mean_occupancy"] <= 1.0
+    # one lane per registered paradigm, the distributed one included
     assert set(snap["lanes"]) == {EXECUTOR_CUDA, EXECUTOR_TORCH_REF,
-                                  EXECUTOR_NUMPY_MT}
+                                  EXECUTOR_NUMPY_MT, EXECUTOR_DISTRIBUTED}
 
 
 @pytest.mark.parametrize("executor", [EXECUTOR_CUDA, EXECUTOR_TORCH_REF])
