@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's mining and LM serving paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's mining, LM serving and LM training paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -83,6 +83,26 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    attention patched to the plain version: prefill logits within
    1e-4 of the largest logit, greedy tokens equal.  The bf16 run's distance
    from the plain route is printed, not gated.
+3d. Slice 9's path, LM training, with no step on the CPU except (c)'s
+   host half.  (a) OLMo-1B at its published width and depth (16 layers,
+   d_model 2048, 16 heads of 128, d_ff 8192, vocab 50,304; bf16 weights
+   with fp32 master, mu and nu; remat "full"; wsd): 4 steps of
+   ``train.step.make_train_step`` on one fixed batch of 16 x 2048 tokens
+   (the config's loss_chunk=16 chunked CE).  Every loss finite, the loss
+   lower at step 4 than at step 1, every parameter leaf's step-1 gradient
+   finite and non-zero, and no flash launch in training (the training
+   attention is ``layers._sdpa``).  Prints the median step time of steps
+   2-4, tokens/s, MFU against 989 TFLOP/s with the step's FLOP count,
+   peak memory and the card, and profiles one more step.  (b)
+   ``launch.train.run_training_job`` at full width with the depth cut to 2
+   layers: cancelled after step 2 (by step count), it must end SUSPENDED
+   with an emergency checkpoint whose restore is bit-equal to the saved
+   state (generator included); a second call claims the same job and ends
+   at step 4; its losses agree with an uninterrupted run's within 1e-2
+   relative.  Prints save and restore seconds and bytes written.  (c) The
+   same 2-layer width in fp32 on the card and on the host, same params and
+   tokens: every gradient leaf within 1e-3 of its largest |g|; and a
+   prefill of (a)'s trained weights launches flash "tc" once a layer.
 4. Checks small runs against the sequential DBSCAN oracle, that a
    cancelled job ends SUSPENDED, and (4b) that a service batch preempted
    mid-run on the card ends SUSPENDED and resumes in a fresh service to the
@@ -138,7 +158,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -224,6 +247,23 @@ ATTN_ROUTE = {"float32": "simt", "bfloat16": "tc"}
 SERVE = dict(arch="olmo-1b", batch=4, prompt_len=4096, gen=32)
 SERVE_CHECK = dict(batch=2, prompt_len=1024, gen=8)
 SERVE_LOGIT_RTOL = 1e-4
+# The training phase (3d): OLMo-1B at its published width and depth, bf16
+# weights with fp32 master, mu and nu, remat "full", the wsd schedule;
+# batch 16 x seq 2048 (OLMo's pretraining context; batch 16 engages the
+# config's loss_chunk=16 chunked CE).  The lifecycle at full width with
+# the depth cut to 2 layers (a 16-layer checkpoint is ~16.5 GB); the
+# gradient check at full width, 2 layers, fp32, card against host.
+TRAIN = dict(arch="olmo-1b", batch=16, seq=2048, steps=4)
+# wsd over 4 steps warms up in one: the second step already takes the full
+# lr, and AdamW's first update is ~lr x sign(g) on every weight.  At 1e-4
+# (and the launcher's 1e-3) that overshoots at this depth and the loss rises
+# over 4 steps, in bf16 and fp32 alike; 1e-5 falls
+# (scripts/train_lr_sweep.py, PERF.md PR 19).
+TRAIN_LR = 1e-5
+TRAIN_CUT_LAYERS = 2
+TRAIN_RESUME_RTOL = 1e-2
+TRAIN_GRAD_CHECK = dict(batch=2, seq=256)
+TRAIN_GRAD_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1128,12 +1168,248 @@ def lm_serving_path(torch, mods, counters) -> dict:
     return {"flash_attention": launches["flash_attention"]}
 
 
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """FLOPs of one training step: 6 N per token, plus attention's
+    12 L B S^2 H D (QK^T and PV, forward and backward; causal masking not
+    subtracted); the remat forward is not counted."""
+    attn = 12 * cfg.n_layers * batch * seq ** 2 * cfg.n_heads * cfg.d_head
+    return 6.0 * n_params * batch * seq + attn
+
+
+def _named_leaves(tree, prefix=""):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _named_leaves(tree[key], f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", tree[key]
+
+
+def _check_no_launch(counters, what: str) -> None:
+    launched = {name: fn.launches for name, fn in counters.items()
+                if fn.launches}
+    check(not launched, f"{what}: a kernel launched: {launched}")
+
+
+def train_full(torch, mods, counters, card: str) -> dict:
+    """(a) OLMo-1B at full width and depth: 4 train steps on one fixed
+    batch, the step-1 gradients, then a prefill of the trained weights."""
+    tstep, configs, optim = mods["tstep"], mods["configs"], mods["optim"]
+    cfg = configs.get_config(TRAIN["arch"])
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.time()
+    state = tstep.init_train_state(SEED, cfg, device=DEV)
+    n_params = sum(p.numel() for _n, p in _named_leaves(state.params))
+    batch = tstep.make_train_batch(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg, b, s)
+    torch.cuda.synchronize()
+    log(f"train (a): state init {time.time() - t0:.3f} s, {n_params} "
+        f"params, state {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # the step-1 gradients: every leaf finite and non-zero
+    _loss, _parts, grads = tstep.loss_and_grads(state.params, batch, cfg)
+    bad = [name for name, g in _named_leaves(grads)
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    check(not bad, f"train (a): step-1 gradient zero or not finite in {bad}")
+    log(f"train (a): step-1 gradients of all "
+        f"{len(list(_named_leaves(grads)))} leaves finite and non-zero")
+    del grads, _loss, _parts
+
+    step = tstep.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                 optim.make_schedule("wsd", TRAIN["steps"]))
+    losses, times = [], []
+    for _ in range(TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # waits for the step
+        times.append(time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses),
+          f"train (a): a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"train (a): the loss did not fall from step 1 to step "
+          f"{TRAIN['steps']}: {losses}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check_no_launch(counters, "train (a)")
+    med = statistics.median(times[1:])
+    flops = train_flops(cfg, n_params, b, s)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(step_s=med, tokens_per_s=b * s / med, flops=flops,
+               mfu=flops / med / PEAK_BF16, peak_gb=peak / 1e9,
+               losses=losses, times=times, launches=launches)
+    log(f"train (a) {TRAIN['arch']} full width and depth ({cfg.n_layers} "
+        f"layers, bf16, fp32 master/mu/nu, remat {cfg.remat}, wsd, batch "
+        f"{b} x seq {s}): losses {losses!r}, step times {times!r} s, median "
+        f"of steps 2-{TRAIN['steps']} {med!r} s, tokens/s "
+        f"{out['tokens_per_s']!r}, MFU {out['mfu']!r} of {PEAK_BF16:.4g} "
+        f"FLOP/s dense bf16 (step FLOPs {flops!r} = 6 N tokens "
+        f"{6.0 * n_params * b * s!r} + attention "
+        f"{flops - 6.0 * n_params * b * s!r}; remat not counted), peak "
+        f"memory {out['peak_gb']!r} GB, flash launches "
+        f"{counters['flash_attention'].launches}; card {card}")
+    profile_window(torch, "train step (one more step, batch "
+                   f"{b} x seq {s})", lambda: step(state, batch), top=14)
+    _check_no_launch(counters, "train (a) profiled step")
+
+    # (c), second part: a prefill of the trained weights runs flash "tc"
+    reset(counters)
+    logits, _cache = tstep.make_prefill_step(cfg)(
+        state.params, {"tokens": batch["tokens"][:2, :1024]})
+    by_route = dict(counters["flash_attention"].launches_by_route)
+    check(by_route == {"tc": cfg.n_layers, "simt": 0},
+          f"train (c): prefill of the trained weights launched flash "
+          f"{by_route}, not {cfg.n_layers} times on \"tc\"")
+    check(bool(torch.isfinite(logits).all()) and not logits.requires_grad,
+          "train (c): prefill logits of the trained weights")
+    log(f"train (c): prefill of the trained weights (batch 2, prompt 1024): "
+        f"flash launches by route {by_route}, logits finite")
+    del state, batch, logits, _cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def train_lifecycle(torch, mods, counters, card: str) -> dict:
+    """(b) run_training_job at full width, 2 layers: cancelled after step
+    2 (by step count), SUSPENDED with an emergency checkpoint; a second
+    call resumes it to step 4; an uninterrupted run beside it."""
+    lt, cancel, store_mod = mods["launch_train"], mods["cancel"], mods["store"]
+    steps, half = TRAIN["steps"], TRAIN["steps"] // 2
+    job = dict(arch=TRAIN["arch"], smoke=False, steps=steps,
+               batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN_LR,
+               layers=TRAIN_CUT_LAYERS, device=DEV)
+    reset(counters)
+    work = workdir(mods, "train_")
+    tok = cancel.CancellationToken()
+
+    def preempt(step: int, _loss: float) -> None:
+        if step == half:
+            tok.cancel(cancel.CancelReason.PREEMPTION)
+
+    t0 = time.time()
+    out1 = lt.run_training_job(workdir=work, ckpt_every=half, token=tok,
+                               on_step=preempt, **job)
+    wall1 = time.time() - t0
+    check(out1["final_state"] == "SUSPENDED" and out1["steps_done"] == half,
+          f"train (b): first call ended {out1['final_state']} at step "
+          f"{out1['steps_done']}")
+    store = store_mod.CheckpointStore(os.path.join(work, "ckpt"))
+    check(store.latest_step() == half
+          and store.manifest(half)["metadata"].get("emergency"),
+          f"train (b): no emergency checkpoint at step {half}")
+    ckpt_bytes = _ckpt_bytes(os.path.join(store.root, f"step_{half}"))
+    t0 = time.time()
+    back = lt.restore_train_state(store, half, out1["state"])
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    saved = dict(_named_leaves(out1["state"]._asdict()))
+    restored = dict(_named_leaves(back._asdict()))
+    check(saved.keys() == restored.keys() and all(
+        saved[k].dtype == restored[k].dtype and saved[k].device
+        == restored[k].device and torch.equal(saved[k].detach(),
+                                              restored[k].detach())
+        for k in saved), "train (b): the restored state differs from the "
+                         "saved one")
+    del out1["state"], back, saved, restored
+
+    t0 = time.time()
+    out2 = lt.run_training_job(workdir=work, ckpt_every=half, **job)
+    wall2 = time.time() - t0
+    check(out2["final_state"] == "SUCCEEDED" and out2["steps_done"] == steps
+          and out2["job_id"] == out1["job_id"] and "restore_s" in out2,
+          f"train (b): the resume ended {out2['final_state']} at step "
+          f"{out2['steps_done']} (job {out2['job_id']}, suspended job "
+          f"{out1['job_id']})")
+    del out2["state"]
+    shutil.rmtree(work, ignore_errors=True)
+    work = workdir(mods, "train_ref_")
+    ref = lt.run_training_job(workdir=work, ckpt_every=steps, **job)
+    del ref["state"]
+    shutil.rmtree(work, ignore_errors=True)
+    got = out1["losses"] + out2["losses"]
+    rel = max(abs(a - r) / abs(r) for a, r in zip(got, ref["losses"]))
+    check(len(got) == len(ref["losses"]) and rel <= TRAIN_RESUME_RTOL,
+          f"train (b): suspended + resumed losses {got} vs uninterrupted "
+          f"{ref['losses']} (rel {rel}, limit {TRAIN_RESUME_RTOL})")
+    _check_no_launch(counters, "train (b)")
+    torch.cuda.empty_cache()
+    log(f"train (b) lifecycle ({TRAIN['arch']} full width, "
+        f"{TRAIN_CUT_LAYERS} layers, batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}): suspended at step {half} ({wall1:.3f} s), "
+        f"emergency save {out1['save_s']!r} s for {ckpt_bytes} bytes, "
+        f"restore {restore_s!r} s (bit-equal, generator included), resume "
+        f"to step {steps} {wall2:.3f} s (its restore {out2['restore_s']!r} "
+        f"s); losses {got!r} vs uninterrupted {ref['losses']!r} (max rel "
+        f"{rel!r}); card {card}")
+    return dict(save_s=out1["save_s"], restore_s=restore_s,
+                ckpt_bytes=ckpt_bytes)
+
+
+def train_grad_check(torch, mods, counters) -> dict:
+    """(c) gradients of a 2-layer OLMo-1B-width model in fp32, card against
+    host, on the same params and tokens."""
+    tstep, lm, configs = mods["tstep"], mods["lm"], mods["configs"]
+    tree_map = mods["tree_map"]
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    c = TRAIN_GRAD_CHECK
+    host = tstep.as_trainable(lm.init_params(
+        torch.Generator().manual_seed(SEED), cfg, device="cpu"))
+    card_params = tstep.as_trainable(
+        tree_map(lambda p: p.detach().to(DEV), host))
+    batch = tstep.make_train_batch(torch.Generator().manual_seed(SEED + 1),
+                                   cfg, c["batch"], c["seq"])
+    reset(counters)
+    t0 = time.time()
+    loss_c, _, g_c = tstep.loss_and_grads(
+        card_params, {k: v.to(DEV) for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    t0 = time.time()
+    loss_h, _, g_h = tstep.loss_and_grads(host, batch, cfg)
+    host_s = time.time() - t0
+    _check_no_launch(counters, "train (c)")
+    worst = {}
+    for (name, a), (_n, b) in zip(_named_leaves(g_c), _named_leaves(g_h)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        check(scale > 0 and err <= TRAIN_GRAD_TOL * scale,
+              f"train (c): gradient of {name} differs by {err} on the card "
+              f"(largest |g| {scale}, limit {TRAIN_GRAD_TOL} of it)")
+        worst[name] = err / scale
+    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    log(f"train (c) gradient check ({TRAIN_CUT_LAYERS} layers, full width, "
+        f"fp32, batch {c['batch']} x seq {c['seq']}): loss card "
+        f"{loss_c!r} host {loss_h!r} (rel {rel!r}); "
+        f"gradient max |diff| / max |g| per leaf {worst!r}; card {card_s:.3f}"
+        f" s, host {host_s:.3f} s")
+    return dict(worst=max(worst.values()))
+
+
+def training_path(torch, mods, counters, card: str) -> dict:
+    """Slice 9's path: LM training (phase 3d (a)-(c))."""
+    t0 = time.time()
+    full = train_full(torch, mods, counters, card)
+    life = train_lifecycle(torch, mods, counters, card)
+    grads = train_grad_check(torch, mods, counters)
+    log(f"train phase 3d: {time.time() - t0:.1f} s wall")
+    return dict(full=full, lifecycle=life, grads=grads,
+                launches=full["launches"])
+
+
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def profile_window(torch, label, fn) -> dict:
+def profile_window(torch, label, fn, top: int = 6) -> dict:
     """Run ``fn`` under ``torch.profiler``; print the device's busy share of
     the window's wall time and the kernels that took the most device time,
     and return the wall, the busy time and each kernel's time (ms).  Only
@@ -1151,12 +1427,12 @@ def profile_window(torch, label, fn) -> dict:
     evts = [e for e in prof.key_averages()
             if e.device_type == device and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in evts)
-    top = sorted(evts, key=_device_us, reverse=True)[:6]
+    ranked = sorted(evts, key=_device_us, reverse=True)[:top]
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiler on), "
         f"device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of the "
         f"wall, {sum(e.count for e in evts)} device ops; top: " + "; ".join(
             f"{e.key[:60]} x{e.count} {_device_us(e) / 1e3:.3f} ms"
-            for e in top))
+            for e in ranked))
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                 by_kernel={e.key: (e.count, _device_us(e) / 1e3)
                            for e in evts})
@@ -2184,15 +2460,20 @@ def main() -> int:
     from repro_torch.kernels.distance import ops as dops, ref as dref
     from repro_torch.kernels.neighbor import ops as nops, ref as nref
     from repro_torch.launch import mine, serve, serve_mine
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import layers, lm
     from repro_torch.runtime import backend
-    from repro_torch import service
+    from repro_torch import optim, service
+    from repro_torch.checkpoint import store
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_map
 
     mods = dict(dops=dops, dref=dref, fops=fops, nops=nops, nref=nref,
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
                 cancel=cancel, serve_mine=serve_mine, service=service,
                 aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
-                configs=configs, dist=dist)
+                configs=configs, dist=dist, tstep=tstep, optim=optim,
+                launch_train=launch_train, store=store, tree_map=tree_map)
     counters = {"assign_clusters": dops.assign_clusters,
                 "fused_masked_assign_update": fops.fused_masked_assign_update,
                 "epsilon_degree": nops.epsilon_degree,
@@ -2231,6 +2512,8 @@ def main() -> int:
             lm_launches = lm_serving_path(torch, mods, counters)
             log(f"LM serving path: {time.time() - t_path:.1f} s, launches "
                 f"{lm_launches}")
+            train = training_path(torch, mods, counters, card)
+            train_launches = train["launches"]
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)
@@ -2273,6 +2556,8 @@ def main() -> int:
                         "launches_service_path": svc_launches.get(
                             row["name"]),
                         "launches_lm_path": lm_launches.get(row["name"]),
+                        "launches_training_path": train_launches.get(
+                            row["name"]),
                         "launches_distributed_path": dist_launches.get(
                             row["name"]),
                         "max_err": row["max_abs_err"],

@@ -17,11 +17,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import torch
-
 from repro_torch.checkpoint.store import (
     CheckpointStore,
     _tree_map_with_path,
+    as_tensor,
     tree_flatten_with_path,
 )
 
@@ -40,7 +39,7 @@ def restore_resharded(
     structure whose leaves are ``torch.device``)."""
     devices = dict(tree_flatten_with_path(placement_fn(like, mesh)))
     return _tree_map_with_path(
-        lambda path, arr: torch.as_tensor(arr, device=devices[path]),
+        lambda path, arr: as_tensor(arr, devices[path]),
         store.restore(step, like))
 
 

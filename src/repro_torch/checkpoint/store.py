@@ -14,6 +14,11 @@ checkpoint directory is either complete and verified or invisible:
 - restore takes a target ``device``: leaves come back as host numpy arrays,
   or as tensors on that device.
 
+bfloat16 leaves are stored as the reference stores them (numpy has no
+bfloat16): the raw 2-byte words in a ``V2`` array, ``"bfloat16"`` in the
+manifest; :func:`as_tensor` turns such an array back into a bfloat16
+tensor, bit for bit.
+
 Format: one ``.npy`` per tree leaf, named by the flattened key path, plus
 ``manifest.json`` (shapes, dtypes, crcs, user metadata, format version).
 Trees are nested dicts, lists and tuples; :func:`tree_flatten_with_path`
@@ -91,11 +96,30 @@ def _key_str(path) -> str:
     return ".".join(str(p) for p in path) if path else "_root"
 
 
+_BF16_WORDS = np.dtype("V2")
+
+
 def _to_host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         # a copy even on the CPU: the caller may update it in place later
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_WORDS)
+        return host.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
+
+
+def as_tensor(arr: np.ndarray, device: "torch.device | str") -> torch.Tensor:
+    """A restored leaf as a tensor on ``device``; a ``V2`` array (stored
+    bfloat16 words) becomes a bfloat16 tensor with the same bits."""
+    if arr.dtype == _BF16_WORDS:
+        words = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return words.view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -147,7 +171,7 @@ class CheckpointStore:
                 manifest["leaves"][name] = {
                     "file": fname,
                     "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": _dtype_name(arr),
                     "crc32": _crc(arr),
                 }
             mpath = os.path.join(tmp, "manifest.json")
@@ -224,7 +248,7 @@ class CheckpointStore:
                     f"ckpt {arr.shape} vs target {np.shape(leaf)}"
                 )
             if device is not None:
-                return torch.as_tensor(arr, device=device)
+                return as_tensor(arr, device)
             return arr
 
         return _tree_map_with_path(load, like)

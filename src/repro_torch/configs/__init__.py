@@ -4,7 +4,7 @@ The modules are copies of the reference's (``repro/configs``), with the
 published config and a ``smoke()`` reduced config of the same family.  The
 registry lists only the archs whose families the port runs: the dense
 decoders.  MoE, Mamba, hybrid and frontend archs wait for ROADMAP.md queue 1
-item 10; asking for one raises a ``KeyError`` that says so.
+item 4; asking for one raises a ``KeyError`` that says so.
 """
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, SHAPES
@@ -31,7 +31,7 @@ def _module(name: str):
         if name in NOT_PORTED:
             raise KeyError(
                 f"arch {name!r} is not ported yet: its family waits for "
-                f"ROADMAP.md queue 1 item 10; ported: {ARCH_NAMES}")
+                f"ROADMAP.md queue 1 item 4; ported: {ARCH_NAMES}")
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(_ARCH_MODULES[name])
 

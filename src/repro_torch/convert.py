@@ -3,11 +3,13 @@ this port.
 
 The mining paths have no weights: their state is the points, the K-Means
 centroids with their iteration counter, and the DBSCAN run snapshot.  The
-LM serving path has its parameter tree.  Every function here takes or
+LM paths have their parameter tree, and training its whole state (params,
+AdamW moments and master copy, counters).  Every function here takes or
 returns plain numpy in the reference package's layout (what its results
 hold, what ``DBSCANRunState.as_tree()`` gives, the LM's nested param dicts),
 so a run suspended in one package resumes in the other, and one set of
-weights runs in both, without either importing the other.  The port's own ``DBSCANRunState.as_tree()`` already is that layout:
+weights (or one training state) runs in both, without either importing the
+other.  The port's own ``DBSCANRunState.as_tree()`` already is that layout:
 the reference's ``DBSCANRunState.from_tree`` takes it as it is.
 """
 
@@ -99,3 +101,25 @@ def lm_params_from_jax(tree: Mapping[str, object],
     axis 0) -> the port's params: the same key names, shapes and dtypes."""
     return {k: lm_params_from_jax(v, device) if isinstance(v, Mapping)
             else _tensor_from_numpy(v, device) for k, v in tree.items()}
+
+
+def train_state_from_jax(state: Mapping[str, object], *, seed: int = 0,
+                         device: torch.device | str = "cpu"):
+    """A reference ``TrainState``'s fields as numpy (``params``, ``opt`` =
+    {``mu``, ``nu``, ``count``, and ``master`` for a bf16 model}, ``step``)
+    -> the port's :class:`repro_torch.train.step.TrainState`, params as
+    autograd leaves.  The reference's ``jax.random`` key has no torch
+    counterpart: ``rng`` is a generator state seeded ``seed``."""
+    from repro_torch.train.step import TrainState, _rng_state, as_trainable
+
+    opt = dict(state["opt"])
+    return TrainState(
+        params=as_trainable(lm_params_from_jax(state["params"], device)),
+        opt={k: lm_params_from_jax(v, device) if isinstance(v, Mapping)
+             else torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                               device=device)
+             for k, v in opt.items()},
+        step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                          device=device),
+        rng=_rng_state(seed),
+    )

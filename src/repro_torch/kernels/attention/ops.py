@@ -12,6 +12,9 @@ kernel is decided before the launch, from dtype, shape and strides alone
 - ``"simt"``: ``csrc/attention.cu``, fp32 arithmetic on the CUDA cores,
   for everything else (fp32, other head widths, unaligned views).
 
+The kernels compute the forward only: on the card the wrapper raises on
+inputs that need a gradient (training attention is ``models.layers._sdpa``).
+
 ``flash_attention.launches`` counts kernel launches (plain runs do not
 count) and ``flash_attention.launches_by_route`` splits them by route, so a
 run can show which kernel its main path went through.
@@ -166,9 +169,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         position, both counted from 0).
     Returns:
       (B, Sq, H, D) in q's dtype.
+
+    The kernels have no backward: on a CUDA tensor, inputs that need a
+    gradient (grad mode on and q, k or v requiring grad) raise rather than
+    give a result that autograd cannot see through.  Training attention
+    takes ``models.layers._sdpa`` instead.
     """
     _check_inputs(q, k, v)
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise RuntimeError(
+                "flash_attention has no backward; run it under "
+                "torch.no_grad() or on inputs that need no gradient")
         return _launch(q, k, v, causal, _route(q, k, v))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)

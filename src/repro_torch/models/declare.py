@@ -5,8 +5,8 @@ reference (``repro/models/declare.py``).  From the same tree of
 declarations the port derives the initialised tensors
 (:func:`repro_torch.models.lm.init_params`), the decode cache and the
 logical-axes tree.  The abstract (shape-only) tree of the dry-run waits for
-ROADMAP.md queue 1 item 11; the reference's ``custom`` init and per-leaf
-dtype override serve only the Mamba mixer and come with it (item 10).
+ROADMAP.md queue 1 item 5; the reference's ``custom`` init and per-leaf
+dtype override serve only the Mamba mixer and come with it (item 4).
 
 Trees are nested dicts; they are walked in sorted key order, the order
 ``jax.tree_util`` flattens a dict in, so the n-th draw of a generator

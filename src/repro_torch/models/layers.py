@@ -5,10 +5,20 @@ are plain dicts of tensors declared through :mod:`repro_torch.models.declare`
 under the reference's key names and shapes.  The reference's ``lshard``
 sharding annotations are a no-op on one device and have no counterpart.
 
-Full-sequence attention (forward and prefill) runs the hand-written flash
-kernel (:func:`repro_torch.kernels.attention.ops.flash_attention`; its plain
-version on CPU tensors).  One-token decode attention is plain PyTorch, as
-the reference computes it in XLA and not in a Pallas kernel.
+Full-sequence attention has two routes (:func:`attention`):
+
+- under autograd (grad mode on and q, k or v requiring grad, i.e.
+  training), the reference's own training attention, :func:`_sdpa` and the
+  query-chunked :func:`_sdpa_chunked`: einsum and softmax in plain PyTorch,
+  which autograd differentiates.  The reference trains through this XLA
+  attention, not through its Pallas kernel, and has no backward kernel;
+- otherwise (forward and prefill in inference) the hand-written flash
+  kernel (:func:`repro_torch.kernels.attention.ops.flash_attention`; its
+  plain version on CPU tensors), which refuses inputs that need a gradient
+  on the card rather than return a result autograd cannot see through.
+
+One-token decode attention is plain PyTorch, as the reference computes it
+in XLA and not in a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -138,13 +148,50 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k if kvh == n_heads else k.repeat_interleave(n_heads // kvh, dim=2)
 
 
+def _sdpa(q, k, v, cfg: ModelConfig, *, causal_offset: int = 0):
+    """Scaled-dot-product attention, causal, GQA via repeat-KV.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KV, D).  Queries at absolute position
+    causal_offset + i attend to keys at positions <= that.  Scores and
+    softmax in float32, the probabilities cast to q's dtype before the sum
+    over v, as the reference's ``_sdpa``.  The products q.k are taken in
+    q's dtype and widened after (on bf16 the score is rounded to bf16 where
+    the reference keeps float32; exact in float32).
+    """
+    b, sq, h, dh = q.shape
+    kf = _repeat_kv(k, h)
+    vf = _repeat_kv(v, h)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, kf).float() / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device) + causal_offset
+    kpos = torch.arange(kf.shape[1], device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]  # (Sq, Sk)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, vf)
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, chunk: int):
+    """Query-chunked attention: query blocks in turn, so the live score
+    buffer is (B, H, chunk, Sk) instead of (B, H, Sq, Sk)."""
+    sq = q.shape[1]
+    if sq % chunk:
+        raise ValueError(f"sequence {sq} is not a multiple of the attention "
+                         f"chunk {chunk}")
+    return torch.cat([_sdpa(q[:, i:i + chunk], k, v, cfg, causal_offset=i)
+                      for i in range(0, sq, chunk)], dim=1)
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def attention_prefill(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor):
     """Full-sequence causal attention; returns (y, k, v) so prefill can
     keep K and V for the decode cache.
 
-    The one place where the layers call the flash kernel.  Padded heads are
-    masked before the output projection, here and in decode.
+    The flash kernel's route (inference).  Padded heads are masked before
+    the output projection, here and in decode.
     """
     q, k, v = _qkv(params, x, cfg, positions)
     out = _head_mask(cfg, flash_attention(q, k, v, causal=True))
@@ -153,8 +200,20 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (training/prefill) attention."""
-    return attention_prefill(params, x, cfg, positions)[0]
+    """Full-sequence (training/prefill) attention.
+
+    Under autograd it takes the reference's training attention (query
+    chunks of ``cfg.attn_chunk`` when the sequence is longer); otherwise the
+    flash kernel (:func:`attention_prefill`).
+    """
+    q, k, v = _qkv(params, x, cfg, positions)
+    if not _needs_grad(q, k, v):
+        out = flash_attention(q, k, v, causal=True)
+    elif cfg.attn_chunk and x.shape[1] > cfg.attn_chunk:
+        out = _sdpa_chunked(q, k, v, cfg, cfg.attn_chunk)
+    else:
+        out = _sdpa(q, k, v, cfg)
+    return _out_proj(_head_mask(cfg, out), params["wo"])
 
 
 def attention_decode(

@@ -4,10 +4,15 @@ The counterpart of the reference's ``repro/models/lm.py`` for the dense
 family (attention mixer, dense FFN, no frontend).  Parameters for one period
 of ``cfg.pattern`` are stacked over ``cfg.n_groups`` under the reference's
 key names and shapes; the port walks the stack with a plain Python loop
-(eager, no remat: serving only).  A Mamba mixer, an MoE FFN or a frontend
-raises ``NotImplementedError``: those wait for ROADMAP.md queue 1 item 10.
+over views of it (``stacked[g]``), so under autograd each layer's gradient
+flows back into the stacked leaves.  Training recomputes each layer group
+in the backward pass as ``cfg.remat`` says (:func:`_remat`).  A Mamba
+mixer, an MoE FFN or a frontend raises ``NotImplementedError``: those wait
+for ROADMAP.md queue 1 item 4.
 
 Entry points:
+- :func:`hidden_forward` — final normed hidden states (training, under
+  autograd; the loss takes logits chunk by chunk through :func:`unembed`)
 - :func:`forward`       — logits over the whole sequence (+ aux loss, 0)
 - :func:`prefill_step`  — forward over the prompt AND build the decode cache
 - :func:`decode_step`   — one-token step against the cache (in place)
@@ -16,9 +21,15 @@ Entry points:
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import declare
@@ -35,7 +46,7 @@ from repro_torch.models.layers import (
 )
 
 DecodeCache = Dict[str, Any]
-NOT_PORTED = "waits for ROADMAP.md queue 1 item 10"
+NOT_PORTED = "waits for ROADMAP.md queue 1 item 4"
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -139,19 +150,63 @@ def _ffn(sub: Dict, h: torch.Tensor, cfg: ModelConfig, ff: Optional[str]):
     return h + mlp(sub["mlp"], apply_norm(sub.get("norm2", {}), h, cfg), cfg)
 
 
+def _group_body(gp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """One period of ``cfg.pattern``: attention + FFN sub-layers."""
+    for i, (_mixer, ff) in enumerate(cfg.pattern):
+        sub = gp[f"sub_{i}"]
+        hn = apply_norm(sub.get("norm1", {}), x, cfg)
+        x = x + attention(sub["attn"], hn, cfg, positions)
+        x = _ffn(sub, x, cfg, ff)
+    return x
+
+
+# The products "dots" remat keeps: matmuls with no batch dims (the
+# projections and the MLP), as the reference's
+# checkpoint_dots_with_no_batch_dims; the attention einsums (bmm) and every
+# element-wise pass are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` wrapped for the backward pass as ``cfg.remat`` says: "none"
+    keeps every activation; "full" keeps only the group's inputs and
+    recomputes the rest; "dots" keeps the projection products too.
+
+    The dense pattern has one sub-layer a group, so the reference's nested
+    remat of heterogeneous groups (period > 1) has nothing to nest here.
+    """
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def hidden_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final normed hidden states (B, S, d), aux_loss ())."""
+    """Returns (final normed hidden states (B, S, d), aux_loss ()).
+
+    Differentiable: under autograd, gradients reach the stacked layer
+    leaves through the views ``stacked[g]``.
+    """
     check_supported(cfg)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    body = _remat(_group_body, cfg)
     for g in range(cfg.n_groups):
-        gp = _layer(params["layers"], g)
-        for i, (_mixer, ff) in enumerate(cfg.pattern):
-            sub = gp[f"sub_{i}"]
-            hn = apply_norm(sub.get("norm1", {}), x, cfg)
-            x = x + attention(sub["attn"], hn, cfg, positions)
-            x = _ffn(sub, x, cfg, ff)
+        x = body(_layer(params["layers"], g), x, cfg, positions)
     x = apply_norm(params.get("final_norm", {}), x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -161,6 +216,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
     """Returns (logits (B, S, vocab_padded) f32, aux_loss ())."""
     x, aux = hidden_forward(params, tokens, cfg)
     return _logits(params, x, cfg), aux
+
+
+def unembed(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Public logits head (used by the chunked loss)."""
+    return _logits(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -192,12 +252,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 
 
+@torch.no_grad()
 def decode_step(params: Dict, cache: DecodeCache, tokens: torch.Tensor,
                 pos: int, cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeCache]:
     """One-token decode.  Returns (logits (B, 1, vocab_padded), cache).
 
     ``tokens`` is (B, 1); ``pos`` the position being written.  The cache is
-    updated in place and returned.
+    updated in place and returned.  Inference only: runs under
+    ``torch.no_grad()``, so trained weights (autograd leaves) decode too.
     """
     check_supported(cfg)
     x = _embed_tokens(params, tokens, cfg)
@@ -218,6 +280,7 @@ def decode_step(params: Dict, cache: DecodeCache, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@torch.no_grad()
 def prefill_step(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                  max_seq: Optional[int] = None
                  ) -> Tuple[torch.Tensor, DecodeCache]:
@@ -227,7 +290,8 @@ def prefill_step(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     in place; attention caches the full K/V prefix.  Prefill attention is
     the flash kernel followed by the padded-head mask, the same attention
     as :func:`forward` (the reference's prefill leaves the mask out; see
-    ROADMAP.md section 3).
+    ROADMAP.md section 3).  Inference only: runs under ``torch.no_grad()``,
+    which keeps the flash kernel's route for trained weights.
     """
     check_supported(cfg)
     b, seq = tokens.shape

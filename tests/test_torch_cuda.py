@@ -547,6 +547,60 @@ def test_flash_kernel_matches_plain(gen, b, s, sk, h, kv, d, dtype, causal):
     assert torch.equal(aops.flash_attention(q, k, v, causal=causal), out)
 
 
+def test_flash_wrapper_raises_on_inputs_that_need_a_gradient(gen):
+    """The kernels have no backward: a result autograd cannot see through
+    would leave wq, wk and wv without gradients, so the wrapper refuses."""
+    q = torch.randn(1, 64, 2, 64, generator=gen).cuda().requires_grad_()
+    k = torch.randn(1, 64, 2, 64, generator=gen).cuda()
+    before = aops.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        aops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        aops.flash_attention(k, q, k)
+    assert aops.flash_attention.launches == before
+    with torch.no_grad():
+        out = aops.flash_attention(q, k, k)
+    assert aops.flash_attention.launches == before + 1
+    assert not out.requires_grad
+    out2 = aops.flash_attention(q.detach(), k, k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+def test_training_gradients_on_the_card_match_the_host():
+    """A smoke-config training loss and its gradients on the card (fp32)
+    against the same on the host, through the training attention route:
+    the flash counter stays put."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.runtime import backend
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_leaves, tree_map
+
+    backend.load("cuda")  # fp32 matmul at "highest"
+    cfg = dataclasses.replace(get_smoke_config("minicpm-2b"), loss_chunk=2,
+                              attn_chunk=16)
+    host = tstep.init_train_state(0, cfg, device="cpu")
+    card = tstep.as_trainable(tree_map(lambda p: p.detach().cuda(),
+                                       host.params))
+    batch = tstep.make_train_batch(torch.Generator().manual_seed(1), cfg,
+                                   4, 32)
+    before = aops.flash_attention.launches
+    loss_h, _, g_h = tstep.loss_and_grads(host.params, batch, cfg)
+    loss_c, _, g_c = tstep.loss_and_grads(
+        card, {k: v.cuda() for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    assert aops.flash_attention.launches == before
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_h)):
+        scale = float(b.abs().max())
+        assert scale > 0 and torch.isfinite(a).all()
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
 def test_flash_kernel_reads_strided_views(gen):
     qkv = torch.randn(2, 200, 12, 64, generator=gen).cuda()  # (B, S, 3H, D)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]

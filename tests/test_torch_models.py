@@ -66,9 +66,9 @@ def test_registry_lists_dense_archs_and_refuses_the_rest():
     assert set(tconfigs.ARCH_NAMES) | set(tconfigs.NOT_PORTED) == \
         set(JAX_ARCH_NAMES)
     for arch in tconfigs.NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 10"):
+        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 4"):
             tconfigs.get_config(arch)
-        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 10"):
+        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 4"):
             tconfigs.get_smoke_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
@@ -79,9 +79,9 @@ def test_registry_lists_dense_archs_and_refuses_the_rest():
                                     dict(frontend="vlm")])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(tconfigs.get_smoke_config("olmo-1b"), **change)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         tlm.model_decls(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         tlm.forward({}, torch.zeros((1, 2), dtype=torch.long), cfg)
 
 

@@ -1,8 +1,10 @@
 """The port stands alone: a CPU mining job, a CPU service round trip, a
 CPU LM serving batch, the durable serving tier's modules (replication,
-the fleet and its worker entry point) and the distributed lane (a ring
-degree on a mesh of two host shards, the elastic restore) in a fresh
-interpreter load neither jax nor anything of the reference package."""
+the fleet and its worker entry point), the distributed lane (a ring
+degree on a mesh of two host shards, the elastic restore) and LM training
+(a two-step CPU training job; the optimizer, the token pipeline and the
+training examples) in a fresh interpreter load neither jax nor anything of
+the reference package."""
 
 import os
 import subprocess
@@ -44,6 +46,13 @@ from repro_torch.checkpoint import elastic
 mesh = distributed.Mesh(("cpu", "cpu"))
 assert distributed.ring_degree(mesh, torch.zeros(5, 2), 1.0).tolist() == [5] * 5
 assert elastic.restore_resharded
+import repro_torch.train, repro_torch.optim, repro_torch.data.tokens
+import repro_torch.optim.compress, repro_torch.runtime.watchdog
+import repro_torch.examples.train_lm, repro_torch.examples.preemption_resume
+from repro_torch.launch.train import run_training_job
+out = run_training_job(arch="olmo-1b", smoke=True, steps=2, batch=2, seq=8,
+                       workdir=tempfile.mkdtemp(), device="cpu")
+assert out["final_state"] == "SUCCEEDED", out
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
