@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's mining, LM serving and LM training paths on one
-CUDA card and check them.
+"""Drive the PyTorch port's mining, LM serving and LM training paths and its
+tour examples on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -147,7 +147,29 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    fused pass-1 launch a shard and one pass-2 launch a Lloyd iteration; (d) both requests preempted mid-shard at 4 shards and
    resumed at 1 to the same labels.  Each run's wall (profiler on),
    device busy share and launches are printed.
-5. Launch counters are zeroed just before each path and read just after;
+5. Slice 10's path, the four tour examples (``repro_torch.examples``) on
+   the card, run after 3d: (a) ``quickstart.main`` and ``mine_cluster.main``
+   (the 3 x 2 job grid, the 50 ms cancel, the job store read back): K-Means
+   labels and iterations, DBSCAN labels, clusters and expansions equal to
+   the same calls with the plain versions, one assignment launch an
+   iteration, one degree launch and one expansion launch an expansion a
+   DBSCAN fit; (b) ``service_demo.run``: every handle resolved, the cache
+   hit, the dropped stream reopened with bit-equal centroids, the preempted
+   batch resumed (or the "finished first" branch), acts 1-3 on the
+   ``numpy-mt`` host lane by the small-work rule and act 4 on ``torch-ref``
+   (so the demo launches no kernel, as in the reference); then
+   the reopened stream's ``assign`` on the card (one assignment launch)
+   equal to ``assign_clusters_ref``; (c) embedding clustering through the
+   example's functions at OLMo-1B's published width and depth (bf16,
+   1,024 documents x 128 tokens): 16 flash launches, all "tc", finite
+   logits, the forward's time and peak memory (and one more forward
+   under ``torch.profiler``); the pooled (1024, 2048)
+   fp32 points clustered with k-means++ at k = 4, one assignment launch an
+   iteration (the wide search), labels and iterations equal to the plain
+   versions; (d) the assignment kernel at that shape and the fit's first
+   centroids, indices and distances bit-equal to the plain version, timed
+   beside it and ``cdist`` (a row of its own in the kernels line).
+6. Launch counters are zeroed just before each path and read just after;
    every kernel of a path must have launched in it.  Prints one ``kernels``
    JSON line and, last, the device line.  Any failed check exits non-zero
    before that line.
@@ -264,6 +286,12 @@ TRAIN_CUT_LAYERS = 2
 TRAIN_RESUME_RTOL = 1e-2
 TRAIN_GRAD_CHECK = dict(batch=2, seq=256)
 TRAIN_GRAD_TOL = 1e-3
+# The examples phase (5): embedding clustering at OLMo-1B's published width
+# and depth, 1,024 documents of 128 tokens (the forward's fp32 logits are
+# 131,072 x 50,304 x 4 B = 26.4 GB), k = 4 with k-means++ seeding; the
+# pooled points are d_model = 2048 wide, so the assignment kernel takes its
+# wide search (d > ops.WIDE_D).
+EMBED = dict(arch="olmo-1b", docs=1024, seq=128, k=4)
 
 
 class SmokeFailure(RuntimeError):
@@ -1404,6 +1432,278 @@ def training_path(torch, mods, counters, card: str) -> dict:
                 launches=full["launches"])
 
 
+def _launch_counts(counters, names=("assign_clusters", "epsilon_degree",
+                                    "expand_frontier")) -> dict:
+    return {name: counters[name].launches for name in names}
+
+
+def examples_quickstart_mine(torch, mods, counters) -> dict:
+    """5 (a): ``quickstart`` and ``mine_cluster`` on the card, each result
+    equal to the same call with the plain versions."""
+    qs, mc = mods["ex_quickstart"], mods["ex_mine_cluster"]
+    reset(counters)
+    t0 = time.time()
+    out = qs.main(["--device", DEV])
+    torch.cuda.synchronize()
+    wall_qs = time.time() - t0
+    qs_launches = _launch_counts(counters)
+    kres, dres, x = out["kmeans"], out["dbscan"], out["x"]
+    check(qs_launches["assign_clusters"] == int(kres.iterations) >= 1,
+          f"quickstart: {qs_launches['assign_clusters']} assignment launches "
+          f"for {int(kres.iterations)} iterations")
+    check(qs_launches["epsilon_degree"] == 1
+          and qs_launches["expand_frontier"] == int(dres.expansions) >= 1,
+          f"quickstart: DBSCAN launches {qs_launches} for "
+          f"{int(dres.expansions)} expansions")
+    reset(counters)
+    kp = qs.run_kmeans(x, qs.SPEC.clusters, use_kernel=False)
+    dp = qs.run_dbscan(x, qs.SPEC.features, use_kernel=False)
+    _check_no_launch(counters, "quickstart with the plain versions")
+    check(bool(torch.equal(kres.labels, kp.labels))
+          and int(kres.iterations) == int(kp.iterations),
+          f"quickstart K-Means: labels or iterations ({int(kres.iterations)}"
+          f" vs {int(kp.iterations)}) differ from the plain versions")
+    check(bool(torch.equal(dres.labels, dp.labels))
+          and int(dres.n_clusters) == int(dp.n_clusters)
+          and int(dres.expansions) == int(dp.expansions),
+          "quickstart DBSCAN: labels, clusters or expansions differ from "
+          "the plain versions")
+    log(f"examples quickstart: {wall_qs:.3f} s; K-Means {int(kres.iterations)}"
+        f" iterations, DBSCAN {int(dres.n_clusters)} clusters in "
+        f"{int(dres.expansions)} expansions, both equal to the plain "
+        f"versions; launches {qs_launches}")
+
+    work = workdir(mods, "ex_mine_")
+    reset(counters)
+    t0 = time.time()
+    out = mc.main(["--device", DEV, "--workdir", work])
+    torch.cuda.synchronize()
+    wall_mc = time.time() - t0
+    mc_launches = _launch_counts(counters)
+    reset(counters)
+    plain = mc.run_grid(workdir(mods, "ex_mine_plain_"), DEV,
+                        use_kernel=False)
+    _check_no_launch(counters, "mine_cluster with the plain versions")
+    iters = sum(o["iterations"] for o in out["grid"] if o["algo"] == "kmeans")
+    expansions = sum(o["expansions"] for o in out["grid"]
+                     if o["algo"] == "dbscan")
+    for o, p in zip(out["grid"], plain, strict=True):
+        check(o["final_state"] == "SUCCEEDED", f"mine_cluster: {o}")
+        same = bool(torch.equal(o["labels"], p["labels"]))
+        for key in (("iterations",) if o["algo"] == "kmeans"
+                    else ("n_clusters", "expansions")):
+            same = same and o[key] == p[key]
+        check(same, f"mine_cluster {o['algo']} job {o['job_id']}: differs "
+                    f"from the plain versions")
+    canc = out["cancelled"]
+    check((canc["final_state"], canc["cancelled"]) in
+          (("SUSPENDED", True), ("SUCCEEDED", False)),
+          f"mine_cluster cancelled job: {canc['final_state']} with "
+          f"cancelled={canc['cancelled']}")
+    cancel_expansions = canc["expansions"]
+    states = [j.state.value for j in out["jobs"]]
+    check(states == ["SUCCEEDED"] * len(plain) + [canc["final_state"]],
+          f"mine_cluster job store read back {states}")
+    check(mc_launches["assign_clusters"] == iters
+          and mc_launches["epsilon_degree"] == len(mc.GRID) + 1
+          and mc_launches["expand_frontier"]
+          == expansions + cancel_expansions,
+          f"mine_cluster: launches {mc_launches} for {iters} iterations and "
+          f"{expansions} + {cancel_expansions} expansions")
+    log(f"examples mine_cluster: {wall_mc:.3f} s; {len(plain)} grid jobs "
+        f"equal to the plain versions; the cancel "
+        f"{'landed' if canc['cancelled'] else 'came after the job ended'}"
+        f" ({canc['final_state']} after {canc['wall_s']:.3f} s); launches "
+        f"{mc_launches}")
+    return {k: qs_launches[k] + mc_launches[k] for k in qs_launches}
+
+
+def examples_service_demo(torch, mods, counters) -> dict:
+    """5 (b): ``service_demo`` on the card, then the reopened stream's
+    ``assign`` on the card against the plain assignment.
+
+    The demo itself launches no kernel: its requests of acts 1-3 are small
+    work, which the cost model's small-work rule (``dispatch.
+    SMALL_WORK_THRESHOLD``) sends to the ``numpy-mt`` host lane, as the
+    reference's does; act 4 pins ``torch-ref``; the stream learns with the
+    plain versions (``StreamingSession.push``).  The lanes are checked, so
+    a change of routing shows; the one launch is the ``assign`` added here.
+    """
+    sd, service, dref = (mods["ex_service_demo"], mods["service"],
+                         mods["dref"])
+    work = workdir(mods, "ex_svc_")
+    reset(counters)
+    t0 = time.time()
+    out = sd.run(work, DEV)
+    wall = time.time() - t0
+    check(len(out["results"]) == 5
+          and all(r is not None and r["labels"] is not None
+                  for r in out["results"]),
+          "service_demo: a handle did not resolve")
+    check(out["cache_hit"], "service_demo: the repeated dataset missed the "
+                            "cache")
+    check(out["stream_intact"]
+          and out["stream_after"]["step"] == out["stream_before"]["step"],
+          "service_demo: the reopened stream's centroids differ")
+    if out["finished_first"]:
+        outcome = "the batch finished before the preemption landed"
+    else:
+        check(len(out["resumed"]) == 1 and not out["resumed"][0].suspended,
+              f"service_demo: the preempted batch resumed as "
+              f"{out['resumed']}")
+        outcome = f"preempted and resumed on {out['resumed'][0].executor}"
+    lanes = {n: st["batches"] for n, st in out["metrics"]["lanes"].items()
+             if st["batches"]}
+    # acts 1-3 are small work: the cost model's little class
+    # (SMALL_WORK_THRESHOLD) puts them on the host lane, as the reference
+    # does; act 4 pins torch-ref.  Neither launches a kernel.
+    check(set(out["lanes_acts_1_3"]) == {"numpy-mt"}
+          and set(lanes) == {"torch-ref"},
+          f"service_demo: lanes acts 1-3 {out['lanes_acts_1_3']}, act 4 "
+          f"{lanes}; expected numpy-mt, then torch-ref")
+    session = service.StreamingSession(
+        os.path.join(work, "streams"), sd.STREAM["tenant"],
+        sd.STREAM["name"], k=sd.STREAM["k"],
+        batch_size=sd.STREAM["batch_size"], device=DEV)
+    points = sd.dataset(24, clusters=3, points=48)
+    labels = session.assign(points)
+    launches = _launch_counts(counters)
+    check(launches["assign_clusters"] == 1,
+          f"service_demo: stream.assign made "
+          f"{launches['assign_clusters']} assignment launches, not 1")
+    ridx, _ = dref.assign_clusters_ref(
+        torch.as_tensor(points, device=DEV), session.state.centroids)
+    check(bool((torch.as_tensor(labels).long() == ridx.cpu().long()).all()),
+          "service_demo: stream.assign on the card differs from "
+          "assign_clusters_ref")
+    log(f"examples service_demo: {wall:.3f} s; 5 handles resolved, cache "
+        f"hit, stream reopened at step {out['stream_after']['step']} with "
+        f"its centroids bit-equal; {outcome}; lanes acts 1-3 "
+        f"{out['lanes_acts_1_3']}, act 4 {lanes}; stream.assign of "
+        f"{len(points)} points equal to assign_clusters_ref; launches "
+        f"{launches}")
+    return launches
+
+
+def examples_embedding(torch, mods, counters, card: str) -> tuple:
+    """5 (c)-(d): embedding clustering at OLMo-1B's full width and depth
+    through the example's functions, and the assignment kernel's row at
+    its shape (n = docs, d = 2048, k = 4: the wide search)."""
+    ec, configs, kmeans = (mods["ex_embedding"], mods["configs"],
+                           mods["kmeans"])
+    dops, dref = mods["dops"], mods["dref"]
+    cfg = configs.get_config(EMBED["arch"])
+    docs, seq, k = EMBED["docs"], EMBED["seq"], EMBED["k"]
+    torch.cuda.empty_cache()
+    params = ec.init_model(cfg, DEV, seed=SEED)
+    toks = ec.random_tokens(cfg, docs, seq, DEV, seed=SEED + 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.time()
+    emb, logits = ec.embed_documents(params, toks, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    flash = counters["flash_attention"]
+    check(flash.launches == cfg.n_layers
+          and flash.launches_by_route["tc"] == cfg.n_layers,
+          f"embedding forward: flash launches {flash.launches} "
+          f"{flash.launches_by_route}, not {cfg.n_layers} on \"tc\"")
+    check(tuple(logits.shape) == (docs, seq, cfg.vocab_padded),
+          f"embedding forward: logits {tuple(logits.shape)}")
+    rows = logits.view(-1, logits.shape[-1])
+    finite = all(bool(torch.isfinite(rows[i:i + 8192]).all())
+                 for i in range(0, rows.shape[0], 8192))
+    check(finite, "embedding forward: a logit is not finite")
+    logits_bytes = logits.numel() * logits.element_size()
+    del logits, rows
+    torch.cuda.empty_cache()
+    check(tuple(emb.shape) == (docs, cfg.d_model)
+          and emb.dtype == torch.float32
+          and bool(torch.isfinite(emb).all()),
+          f"embedding: pooled points {tuple(emb.shape)} {emb.dtype}")
+    t0 = time.time()
+    res = ec.cluster(emb, k, seed=SEED + 2)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = {"flash_attention": flash.launches,
+                "assign_clusters": counters["assign_clusters"].launches}
+    check(launches["assign_clusters"] == int(res.iterations) >= 1,
+          f"embedding fit: {launches['assign_clusters']} assignment launches "
+          f"for {int(res.iterations)} iterations")
+    reset(counters)
+    plain = ec.cluster(emb, k, seed=SEED + 2, use_kernel=False)
+    _check_no_launch(counters, "embedding fit with the plain versions")
+    check(bool(torch.equal(res.labels, plain.labels))
+          and int(res.iterations) == int(plain.iterations),
+          f"embedding fit: labels or iterations ({int(res.iterations)} vs "
+          f"{int(plain.iterations)}) differ from the plain versions")
+    sizes = torch.bincount(res.labels.long(), minlength=k).tolist()
+    log(f"examples embedding clustering: {cfg.name} {cfg.n_layers} layers "
+        f"d_model {cfg.d_model} {cfg.dtype}, {docs} documents x {seq} "
+        f"tokens; forward {fwd_s:.3f} s ({launches['flash_attention']} "
+        f"flash launches, all \"tc\"; logits finite, {logits_bytes} "
+        f"bytes), peak memory "
+        f"{peak / 1e9:.3f} GB ({base / 1e9:.3f} GB before the forward); "
+        f"fit {fit_s:.3f} s, {int(res.iterations)} iterations, sizes "
+        f"{sizes}, inertia {float(res.inertia)!r}; labels and iterations "
+        f"equal to the plain versions; card {card}")
+
+    # (d) the assignment kernel at the fit's shape and first centroids
+    c0 = kmeans.init_centroids(
+        SEED + 2, emb, kmeans.KMeansConfig(k=k, init="kmeans++"))
+    n, d = emb.shape
+    check(dops.plan(n, k, d).wide, f"assignment n={n} d={d} k={k}: the plan "
+                                   f"did not take the wide search")
+    idx, dist = dops.assign_clusters(emb, c0)
+    ridx, rdist = dref.assign_clusters_ref(emb, c0)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(idx, ridx)) and same_bits(torch, dist, rdist),
+          f"assignment n={n} d={d} k={k} (wide): differs from the plain "
+          f"version")
+    err = float((dist - rdist).abs().max())
+    rechecks = recheck_line(dops, dops.assign_clusters,
+                            f"assignment n={n} d={d} k={k} (embedding)", n)
+    ms = time_ms(torch, lambda: dops.assign_clusters(emb, c0), reps=50)
+    plain_ms = time_ms(torch, lambda: dref.assign_clusters_ref(emb, c0),
+                       reps=20)
+    lib = time_ms(torch, lambda: torch.cdist(emb, c0).argmin(1), reps=50)
+    b, by = bound(n * d * 4 + k * d * 4 + n * 8, 3 * 2.0 * n * k * d,
+                  PEAK_TF32)
+    b32, _ = bound(n * d * 4 + k * d * 4 + n * 8, 2.0 * n * k * d)
+    log(f"assignment n={n} d={d} k={k} (wide, the embedding fit's shape): "
+        f"indices and distances bit-identical; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, cdist {lib:.4f}, bound {b:.4f} ({by})")
+    row = dict(name="assign_clusters_d2048", route="cuda",
+               source="src/repro_torch/csrc/distance.cu",
+               replaces="src/repro/kernels/distance/distance.py:46",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+               library_call="cdist(x, c).argmin(1)",
+               shape=f"n={n} d={d} k={k} (wide)", rechecks=rechecks)
+    # where the forward's time goes: one more forward, after the counts
+    profile_window(torch, f"embedding forward ({docs} x {seq} tokens)",
+                   lambda: ec.embed_documents(params, toks, cfg), top=8)
+    del params, emb
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def examples_path(torch, mods, counters, card: str) -> tuple:
+    """Slice 10's path (phase 5): the four tour examples on the card."""
+    t0 = time.time()
+    launches = examples_quickstart_mine(torch, mods, counters)
+    svc = examples_service_demo(torch, mods, counters)
+    emb, row = examples_embedding(torch, mods, counters, card)
+    for name, v in list(svc.items()) + list(emb.items()):
+        launches[name] = launches.get(name, 0) + v
+    log(f"examples phase 5: {time.time() - t0:.1f} s wall, launches "
+        f"{launches}")
+    return launches, row, emb["assign_clusters"]
+
+
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
@@ -2467,13 +2767,18 @@ def main() -> int:
     from repro_torch.checkpoint import store
     from repro_torch.train import step as tstep
     from repro_torch.tree import tree_map
+    from repro_torch.examples import (embedding_clustering, mine_cluster,
+                                      quickstart, service_demo)
 
     mods = dict(dops=dops, dref=dref, fops=fops, nops=nops, nref=nref,
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
                 cancel=cancel, serve_mine=serve_mine, service=service,
                 aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
                 configs=configs, dist=dist, tstep=tstep, optim=optim,
-                launch_train=launch_train, store=store, tree_map=tree_map)
+                launch_train=launch_train, store=store, tree_map=tree_map,
+                ex_quickstart=quickstart, ex_mine_cluster=mine_cluster,
+                ex_service_demo=service_demo,
+                ex_embedding=embedding_clustering)
     counters = {"assign_clusters": dops.assign_clusters,
                 "fused_masked_assign_update": fops.fused_masked_assign_update,
                 "epsilon_degree": nops.epsilon_degree,
@@ -2514,6 +2819,9 @@ def main() -> int:
                 f"{lm_launches}")
             train = training_path(torch, mods, counters, card)
             train_launches = train["launches"]
+            ex_launches, ex_row, ex_assign = examples_path(
+                torch, mods, counters, card)
+            rows.append(ex_row)
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)
@@ -2545,6 +2853,8 @@ def main() -> int:
     launches.update(lm_launches)
     launches.update({k: v for k, v in dist_launches.items()
                      if k.endswith("_cross")})
+    launches["assign_clusters_d2048"] = ex_assign
+    ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
     for row in rows:
         row["launches"] = launches[row["name"]]
         log(json.dumps({"kernel": row["name"], "ms": row["ms"],
@@ -2559,6 +2869,8 @@ def main() -> int:
                         "launches_training_path": train_launches.get(
                             row["name"]),
                         "launches_distributed_path": dist_launches.get(
+                            row["name"]),
+                        "launches_examples_path": ex_launches.get(
                             row["name"]),
                         "max_err": row["max_abs_err"],
                         "library_ms": row["library_ms"],

@@ -463,6 +463,36 @@ def test_wide_rows_are_bit_exact(gen, n, k, d):
     assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
 
 
+def test_wide_assignment_at_the_embedding_width(gen):
+    # the embedding example's shape: 1,024 L2-normalised documents of
+    # d_model = 2048 against k = 4 k-means++ centroids (the wide search),
+    # with a point on each centroid and a duplicate centroid; then the
+    # example's whole fit against the plain versions
+    from repro_torch.core import kmeans
+    from repro_torch.examples import embedding_clustering as ec
+
+    n, d, k = 1024, 2048, 4
+    x = torch.randn(n, d, generator=gen)
+    x = (x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6))
+    x = x.cuda()
+    c = kmeans.init_centroids(0, x, kmeans.KMeansConfig(k=k,
+                                                        init="kmeans++"))
+    assert dops.plan(n, k, d).wide
+    for cc in (c, torch.cat([c[:3], c[:1]])):
+        for with_dists in (True, False):
+            idx, out = dops.assign_clusters(x, cc, with_dists=with_dists)
+            ridx, rscore = dref.assign_scores_ref(x, cc)
+            rout = dref.add_point_norms(x, rscore) if with_dists else rscore
+            torch.cuda.synchronize()
+            assert torch.equal(idx, ridx) and torch.equal(out, rout)
+    before = dops.assign_clusters.launches
+    res = ec.cluster(x, k, seed=2)
+    plain = ec.cluster(x, k, seed=2, use_kernel=False)
+    assert dops.assign_clusters.launches - before == int(res.iterations)
+    assert torch.equal(res.labels, plain.labels)
+    assert int(res.iterations) == int(plain.iterations)
+
+
 @pytest.mark.parametrize("d", [5, 32, 64])
 def test_wide_search_at_narrow_rows(gen, monkeypatch, d):
     # the wide search forced onto rows of one or two boxes (fewer box

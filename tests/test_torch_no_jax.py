@@ -3,8 +3,8 @@ CPU LM serving batch, the durable serving tier's modules (replication,
 the fleet and its worker entry point), the distributed lane (a ring
 degree on a mesh of two host shards, the elastic restore) and LM training
 (a two-step CPU training job; the optimizer, the token pipeline and the
-training examples) in a fresh interpreter load neither jax nor anything of
-the reference package."""
+training examples) and the four tour examples in a fresh interpreter load
+neither jax nor anything of the reference package."""
 
 import os
 import subprocess
@@ -49,6 +49,9 @@ assert elastic.restore_resharded
 import repro_torch.train, repro_torch.optim, repro_torch.data.tokens
 import repro_torch.optim.compress, repro_torch.runtime.watchdog
 import repro_torch.examples.train_lm, repro_torch.examples.preemption_resume
+import repro_torch.examples.quickstart, repro_torch.examples.mine_cluster
+import repro_torch.examples.service_demo
+import repro_torch.examples.embedding_clustering
 from repro_torch.launch.train import run_training_job
 out = run_training_job(arch="olmo-1b", smoke=True, steps=2, batch=2, seq=8,
                        workdir=tempfile.mkdtemp(), device="cpu")
