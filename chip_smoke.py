@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's mining, LM serving and LM training paths and its
-tour examples on one CUDA card and check them.
+"""Drive the PyTorch port's mining, LM serving and LM training paths, the
+serving of every LM family, and its tour examples on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -32,8 +33,13 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    scored at every (rows, columns) pair of the ring; flash
    attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
    bf16, causal), GLM4-9B's (B 1, S 4096, 32 heads on 2 KV heads) and
-   MiniCPM-2B's width (B 2, S 2048, 36 heads of 64) and three more (odd
-   length with GQA, full attention at D 96, a narrow head), within 2e-4
+   MiniCPM-2B's width (B 2, S 2048, 36 heads of 64), three more (odd
+   length with GQA, full attention at D 96, a narrow head), and phase 3e's
+   four other prefill shapes (B 2, S 2048: InternVL2-26B, 48 heads on 8
+   KV heads of 128; MusicGen-medium, 24 heads padded to 32 of 64;
+   OLMoE-1B-7B, 16 heads of 128; Phi3.5-MoE and Jamba, 32 heads on 8 KV
+   heads of 128; each a row of the kernels line with its plain and SDPA
+   times), within 2e-4
    (fp32) / 3e-2 (bf16) of the plain version elementwise and within
    1e-4 / 1e-2 of its norm in every 128-row query block of a head (against
    the plain version in fp32), two launches bitwise equal;
@@ -103,6 +109,30 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    same 2-layer width in fp32 on the card and on the host, same params and
    tokens: every gradient leaf within 1e-3 of its largest |g|; and a
    prefill of (a)'s trained weights launches flash "tc" once a layer.
+3e. Slice 11's path, the MoE, Mamba, hybrid and stub-frontend families,
+   run after phase 5: each of internvl2-26b, musicgen-medium,
+   olmoe-1b-7b, phi3.5-moe-42b-a6.6b (24 of its 32 layers), falcon-mamba-7b
+   and jamba-v0.1-52b (16 of 32 layers: two of its four periods) at its
+   published width with synthetic bf16 weights, batch 2, a 2048-token
+   prompt and 16 greedy tokens, through ``serve.serve_batch`` (the two cut
+   depths through ``lm.init_params`` + ``serve.generate`` on the cut
+   config), one arch's weights freed before the next: one flash launch an
+   attention layer of the prefill (48, 48, 16, 24, 0 and 2), every one on
+   "tc", none in decode, no mining kernel; logits finite, tokens in the
+   vocabulary; prefill_s, ms per decode token and peak memory printed,
+   with a profiler window over one more prefill and 4 decode steps, and
+   for MoE the share of router choices dropped at capacity in a prefill,
+   with each MoE layer's drop share, the mean pairwise cosine of its
+   router inputs within a dispatch group and its top-1 expert histogram
+   (printed, not gated).  internvl2 and musicgen also prefill with their
+   stub frontend's ``synthetic_prefix`` (256 / 64 rows ahead of the rest
+   of the 2048) and decode 4 tokens after it, with the same checks.
+   Then card against host, fp32, batch 2, prompt 256, 4 greedy tokens:
+   each family at its published width cut to one layer group (jamba at
+   its smoke config, one whole period: a period at full width is 51 GB in
+   fp32), the same weights and prompts: prefill logits within 1e-4 of the
+   largest |logit|, greedy tokens equal, and every MoE layer's router ids
+   and keep mask equal (a flip prints the nearest tie's gap).
 4. Checks small runs against the sequential DBSCAN oracle, that a
    cancelled job ends SUSPENDED, and (4b) that a service batch preempted
    mid-run on the card ends SUSPENDED and resumes in a fresh service to the
@@ -256,7 +286,18 @@ ATTN_SHAPES = [
     ("odd length, GQA", 2, 1000, 32, 2, 128, "float32", True),
     ("full attention", 1, 517, 12, 12, 96, "float32", False),
     ("narrow head", 2, 300, 8, 8, 64, "bfloat16", True),
+    ("InternVL2-26B prefill", 2, 2048, 48, 8, 128, "bfloat16", True),
+    ("MusicGen-medium prefill", 2, 2048, 32, 32, 64, "bfloat16", True),
+    ("OLMoE-1B-7B prefill", 2, 2048, 16, 16, 128, "bfloat16", True),
+    ("Phi3.5-MoE / Jamba prefill", 2, 2048, 32, 8, 128, "bfloat16", True),
 ]
+# the rows of the kernels line besides OLMo-1B's: every other prefill shape
+# of phase 3e (musicgen's 24 heads padded to 32; phi3.5-moe and jamba
+# share GQA 32/8; falcon-mamba has no attention)
+ATTN_ROWS = {"InternVL2-26B prefill": "flash_attention_internvl2",
+             "MusicGen-medium prefill": "flash_attention_musicgen",
+             "OLMoE-1B-7B prefill": "flash_attention_olmoe",
+             "Phi3.5-MoE / Jamba prefill": "flash_attention_gqa32_8"}
 # the reference's own flash-test tolerances (tests/test_parallel.py)
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # and per 128-row query block of one (b, h), the relative Frobenius error
@@ -269,6 +310,26 @@ ATTN_ROUTE = {"float32": "simt", "bfloat16": "tc"}
 SERVE = dict(arch="olmo-1b", batch=4, prompt_len=4096, gen=32)
 SERVE_CHECK = dict(batch=2, prompt_len=1024, gen=8)
 SERVE_LOGIT_RTOL = 1e-4
+# Phase 3e: the other six archs at their published widths, bf16, synthetic
+# weights, batch 2, a 2048-token prompt, 16 greedy tokens; depth as the
+# reference's n_params() lets 80 GB hold it (None: every layer).
+# phi3.5-moe is 2.6 GB a layer (83.7 GB whole): 24 of 32 layers.  jamba is
+# 25.5 GB a period of 8 layers (103 GB whole): 2 of 4 periods.
+SERVE_FAMILIES = [
+    ("internvl2-26b", None),
+    ("musicgen-medium", None),
+    ("olmoe-1b-7b", None),
+    ("phi3.5-moe-42b-a6.6b", 24),
+    ("falcon-mamba-7b", None),
+    ("jamba-v0.1-52b", 16),
+]
+SERVE_WIDE = dict(batch=2, prompt_len=2048, gen=16)
+# the stub frontends' prefill: prefix_len rows + the rest of the 2048
+SERVE_PREFIX_GEN = 4
+# decode steps in each arch's profiler window
+SERVE_PROFILE_STEPS = 4
+# card against host, fp32, one layer group at the published width
+SERVE_TWIN = dict(batch=2, prompt_len=256, gen=4)
 # The training phase (3d): OLMo-1B at its published width and depth, bf16
 # weights with fp32 master, mu and nu, remat "full", the wsd schedule;
 # batch 16 x seq 2048 (OLMo's pretraining context; batch 16 engages the
@@ -1002,12 +1063,16 @@ def close_to_plain(torch, aref, out, ref, ref32, dt: str,
     return err, blk
 
 
-def kernel_attention(torch, mods, sass: dict) -> dict:
+def kernel_attention(torch, mods, sass: dict) -> list:
+    """Every ATTN_SHAPES row on the card against the plain version; the
+    kernels line's rows: the first shape's (OLMo-1B's prefill, with the
+    "simt" route on its bf16 inputs) and those ATTN_ROWS names, each
+    timed beside the plain version and SDPA."""
     aops, aref = mods["aops"], mods["aref"]
     F = torch.nn.functional
     by_route = aops.flash_attention.launches_by_route
     g = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    row = None
+    rows = []
     for what, b, s, h, kv, d, dt, causal in ATTN_SHAPES:
         dtype = getattr(torch, dt)
         q = torch.randn(b, s, h, d, generator=g, device=DEV).to(dtype)
@@ -1042,13 +1107,34 @@ def kernel_attention(torch, mods, sass: dict) -> dict:
             f"{ATTN_BLOCK_TOL[dt]}), two launches bitwise equal, {ms:.4f} ms, "
             f"{ops:.4g} operations, {ops / ms / 1e9:.1f} TFLOP/s, bound "
             f"{bnd:.4f} ms ({by}, {dt})")
-        if row is not None:
+        if rows and what not in ATTN_ROWS:
             del ref, ref32
+            continue
+        b32, _ = bound(nbytes, ops, PEAK_FP32)
+        shape = f"B={b} S={s} H={h} KV={kv} D={d} {dt} causal={causal}"
+        plain = time_ms(torch, lambda: aref.attention_ref(q, k, v,
+                                                          causal=causal),
+                        reps=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=h != kv), reps=10)
+        common = dict(route="cuda", source="src/repro_torch/csrc/flash_sm90.cu",
+                      replaces="src/repro/kernels/attention/attention.py:42",
+                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                      bound_by=by, library_ms=lib, bound_fp32_ms=b32,
+                      block_error=blk, shape=shape,
+                      library_call="torch.nn.functional."
+                                   "scaled_dot_product_attention")
+        if rows:
+            log(f"flash attention {label}: tc {ms!r} ms, plain {plain!r} ms, "
+                f"SDPA {lib!r} ms")
+            rows.append(dict(common, name=ATTN_ROWS[what]))
+            del ref, ref32, q, k, v, qt, kt, vt
             continue
         # the serving shape: the CUDA-core route on the same bf16 inputs
         # (the kernel the tensor-core one replaced on this path, and still
-        # the bf16 route at other widths), checked and timed; the plain
-        # version and SDPA
+        # the bf16 route at other widths), checked and timed beside the
+        # plain version and SDPA
         simt_out = aops._launch(q, k, v, causal, "simt")
         torch.cuda.synchronize()
         simt_err, simt_blk = close_to_plain(
@@ -1059,28 +1145,13 @@ def kernel_attention(torch, mods, sass: dict) -> dict:
         del simt_out, ref, ref32
         simt = time_ms(torch, lambda: aops._launch(q, k, v, causal, "simt"),
                        reps=3)
-        plain = time_ms(torch, lambda: aref.attention_ref(q, k, v,
-                                                          causal=causal),
-                        reps=2)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal), reps=10)
-        b32, _ = bound(nbytes, ops, PEAK_FP32)
         log(f"flash attention {label}: tc {ms!r} ms, simt {simt!r} ms, "
             f"plain {plain!r} ms, SDPA {lib!r} ms")
-        row = dict(name="flash_attention", route="cuda",
-                   source="src/repro_torch/csrc/flash_sm90.cu",
-                   replaces="src/repro/kernels/attention/attention.py:42",
-                   max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                   bound_by=by, library_ms=lib, bound_fp32_ms=b32,
-                   block_error=blk, simt_ms=simt, simt_max_abs_err=simt_err,
-                   simt_block_error=simt_blk, sass=sass,
-                   shape=f"B={b} S={s} H={h} KV={kv} D={d} {dt} "
-                         f"causal={causal}",
-                   library_call="torch.nn.functional."
-                                "scaled_dot_product_attention")
+        rows.append(dict(common, name="flash_attention", simt_ms=simt,
+                         simt_max_abs_err=simt_err,
+                         simt_block_error=simt_blk, sass=sass))
         del q, k, v, qt, kt, vt
-    return row
+    return rows
 
 
 @contextlib.contextmanager
@@ -1702,6 +1773,324 @@ def examples_path(torch, mods, counters, card: str) -> tuple:
     log(f"examples phase 5: {time.time() - t0:.1f} s wall, launches "
         f"{launches}")
     return launches, row, emb["assign_clusters"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the MoE, Mamba, hybrid and stub-frontend archs served
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording_moe(mods, calls: list):
+    """Every MoE sub-layer the decoder runs in the block also records what
+    its router decided (``moe.routing`` on the same input) and how near
+    its nearest tie was: (ids, keep, no_drop, gap) appended to ``calls``,
+    gap the smallest difference over tokens between the k-th and (k+1)-th
+    router probability.  The package has no hook for it."""
+    lm, moe = mods["lm"], mods["moe"]
+    saved = lm.moe_ffn
+
+    def recorded(params, x, cfg, *, no_drop=False):
+        ids, keep = moe.routing(params, x, cfg, no_drop=no_drop)
+        top = moe.route(params, x, cfg)[0].sort(dim=-1, descending=True)[0]
+        k = cfg.top_k
+        gap = (float((top[..., k - 1] - top[..., k]).min())
+               if k < top.shape[-1] else float("inf"))
+        calls.append((ids, keep, no_drop, gap))
+        return saved(params, x, cfg, no_drop=no_drop)
+
+    lm.moe_ffn = recorded
+    try:
+        yield
+    finally:
+        lm.moe_ffn = saved
+
+
+def _n_attn(cfg) -> int:
+    """Attention sub-layers in the config's depth: one flash launch each
+    in a prefill."""
+    return cfg.n_groups * sum(m == "attn" for m, _ff in cfg.pattern)
+
+
+def _check_served(torch, counters, what, out, cfg, batch, gen) -> dict:
+    """One serving run's checks: flash once per attention layer of the
+    prefill, all on "tc", none in decode, no mining kernel; logits finite;
+    every token in the vocabulary.  Returns the launch counts."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    by_route = dict(counters["flash_attention"].launches_by_route)
+    want = _n_attn(cfg)
+    check(launches["flash_attention"] == want
+          and by_route == {"tc": want, "simt": 0},
+          f"{what}: flash launches {launches['flash_attention']} by route "
+          f"{by_route}; want {want} (one per attention layer of the "
+          f"prefill, none in decode), all \"tc\"")
+    check(all(n == 0 for name, n in launches.items()
+              if name != "flash_attention"),
+          f"{what}: a mining kernel launched: {launches}")
+    check(out["logits_finite"], f"{what}: a logit is not finite")
+    toks = out["generated"]
+    check(toks is not None and tuple(toks.shape) == (batch, gen),
+          f"{what}: generated {None if toks is None else tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{what}: a token outside the vocabulary")
+    return launches
+
+
+def _prefix_run(torch, mods, counters, params, cfg, card) -> None:
+    """A stub-frontend arch's prefill with its prefix: prefix_len rows of
+    ``synthetic_prefix`` ahead of SERVE_WIDE prompt - prefix_len tokens,
+    then SERVE_PREFIX_GEN decode steps at the positions that follow."""
+    lm, frontends = mods["lm"], mods["frontends"]
+    b, p = SERVE_WIDE["batch"], SERVE_WIDE["prompt_len"]
+    n = SERVE_PREFIX_GEN
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    pe = frontends.synthetic_prefix(g, cfg, b)
+    toks = torch.randint(0, cfg.vocab, (b, p - cfg.prefix_len), generator=g,
+                         device=DEV)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, cache = lm.prefill_step(params, toks, cfg, max_seq=p + n,
+                                    prefix_embeds=pe)
+    finite = torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    out = []
+    for i in range(n):
+        tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        out.append(tok)
+        logits, cache = lm.decode_step(params, cache, tok, p + i, cfg)
+        finite &= torch.isfinite(logits).all()
+    res = {"generated": torch.cat(out, dim=1), "logits_finite": bool(finite)}
+    _check_served(torch, counters, f"{cfg.name} with its prefix", res, cfg,
+                  b, n)
+    log(f"serve {cfg.name} with its {cfg.frontend} prefix: "
+        f"{cfg.prefix_len} prefix rows + {p - cfg.prefix_len} tokens, "
+        f"prefill {prefill_s!r} s, {n} decode steps, "
+        f"{_n_attn(cfg)} flash launches all \"tc\", logits finite; "
+        f"card {card}")
+
+
+def _group_cosine(torch, x, group: int) -> float:
+    """The mean cosine over pairs of distinct tokens within a dispatch
+    group, x (B, S, d): per group, |sum of unit rows|^2 = G + that sum over
+    the G (G - 1) ordered pairs."""
+    b, s, d = x.shape
+    u = torch.nn.functional.normalize(x.float(), dim=-1)
+    tot = u.reshape(b * (s // group), group, d).sum(1).square().sum(-1)
+    return float(((tot - group) / (group * (group - 1))).mean())
+
+
+def _drop_share(torch, mods, params, cfg) -> tuple:
+    """The share of token choices dropped at capacity in a prefill of the
+    timed run's shape, and for each MoE layer its own share, the mean
+    pairwise cosine of its router inputs within a dispatch group (the
+    token embeddings' in front) and its top-1 expert histogram (logged,
+    not gated)."""
+    lm, moe = mods["lm"], mods["moe"]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab, (SERVE_WIDE["batch"],
+                                        SERVE_WIDE["prompt_len"]),
+                         generator=g, device=DEV)
+    group, _cap = moe.grouping(cfg, toks.shape[1], False)
+    layers = []
+    saved = lm.moe_ffn
+
+    def recorded(params, x, cfg, *, no_drop=False):
+        ids, keep = moe.routing(params, x, cfg, no_drop=no_drop)
+        layers.append(dict(
+            kept=int(keep.sum()), total=keep.numel(),
+            cosine=_group_cosine(torch, x, group),
+            top1=torch.bincount(ids[..., 0].flatten(),
+                                minlength=cfg.n_experts).tolist()))
+        return saved(params, x, cfg, no_drop=no_drop)
+
+    lm.moe_ffn = recorded
+    try:
+        lm.prefill_step(params, toks, cfg)
+    finally:
+        lm.moe_ffn = saved
+    kept = sum(ly["kept"] for ly in layers)
+    total = sum(ly["total"] for ly in layers)
+    stats = dict(group=group, layers=layers, embed_cosine=_group_cosine(
+        torch, params["embed"][toks], group))
+    n = toks.numel()
+    log(f"{cfg.name} prefill routing (batch {toks.shape[0]}, prompt "
+        f"{toks.shape[1]}, groups of {group}): token embeddings' mean "
+        f"pairwise cosine within a group {stats['embed_cosine']!r}; per MoE "
+        f"layer: drop share, router inputs' mean pairwise cosine within a "
+        f"group, top-1 experts used of {cfg.n_experts}, largest top-1 share: "
+        + "; ".join(f"{i}: {1 - ly['kept'] / ly['total']:.4f} "
+                    f"{ly['cosine']:.4f} {sum(c > 0 for c in ly['top1'])} "
+                    f"{max(ly['top1']) / n:.4f}"
+                    for i, ly in enumerate(layers)))
+    log(json.dumps({"moe_routing": cfg.name, **stats}))
+    return 1.0 - kept / total, stats
+
+
+def _profile_arch(torch, mods, params, cfg) -> dict:
+    """Where one arch's serving time goes: a prefill at SERVE_WIDE's shape
+    and SERVE_PROFILE_STEPS decode steps, each under the profiler."""
+    lm = mods["lm"]
+    b, p, n = SERVE_WIDE["batch"], SERVE_WIDE["prompt_len"], \
+        SERVE_PROFILE_STEPS
+    g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    toks = torch.randint(0, cfg.vocab, (b, p), generator=g, device=DEV)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = lm.prefill_step(params, toks, cfg,
+                                                          max_seq=p + n)
+
+    def decode():
+        logits, cache = state["logits"], state["cache"]
+        for i in range(n):
+            tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            logits, cache = lm.decode_step(params, cache, tok, p + i, cfg)
+
+    out = {"prefill": profile_window(torch, f"{cfg.name} prefill (batch {b}, "
+                                            f"prompt {p})", prefill),
+           "decode": profile_window(torch, f"{cfg.name} decode ({n} steps, "
+                                           f"batch {b})", decode)}
+    del state
+    return {k: dict(wall_ms=v["wall_ms"], busy_ms=v["busy_ms"])
+            for k, v in out.items()}
+
+
+def serve_wide_arch(torch, mods, counters, arch, layers, card) -> dict:
+    """One arch at its published width (depth ``layers``, or all), bf16,
+    synthetic weights: SERVE_WIDE through ``serve.serve_batch`` (or, at a
+    cut depth, ``lm.init_params`` + ``serve.generate`` on the cut config),
+    then the prefix run (stub frontends) and the drop share (MoE)."""
+    serve, lm, configs = mods["serve"], mods["lm"], mods["configs"]
+    full = configs.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    b, p, n = SERVE_WIDE["batch"], SERVE_WIDE["prompt_len"], SERVE_WIDE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = None
+    reset(counters)
+    t0 = time.time()
+    if layers is None:
+        out = serve.serve_batch(arch=arch, smoke=False, device=DEV,
+                                seed=SEED, **SERVE_WIDE)
+    else:
+        g = torch.Generator(device=DEV).manual_seed(SEED)
+        params = lm.init_params(g, cfg, device=DEV)
+        prompts = torch.randint(0, cfg.vocab, (b, p), generator=g,
+                                device=DEV)
+        out = serve.generate(params, prompts, cfg, gen=n)
+    wall = time.time() - t0
+    launches = _check_served(torch, counters, f"serve {arch}", out, cfg, b, n)
+    peak = torch.cuda.max_memory_allocated()
+    line = dict(arch=arch, layers=cfg.n_layers, of_layers=full.n_layers,
+                prefill_s=out["prefill_s"],
+                decode_ms=out["decode_s"] / n * 1e3,
+                tokens_per_s=out["tokens_per_s"], wall_s=wall,
+                peak_gb=peak / 1e9, flash=launches["flash_attention"],
+                params=cfg.n_params())
+    del out
+    if params is None:
+        params = lm.init_params(torch.Generator(device=DEV).manual_seed(SEED),
+                                cfg, device=DEV)
+    line["profile"] = _profile_arch(torch, mods, params, cfg)
+    if cfg.frontend != "none":
+        _prefix_run(torch, mods, counters, params, cfg, card)
+    if cfg.n_experts:
+        line["dropped_share"], line["routing"] = _drop_share(
+            torch, mods, params, cfg)
+    log(f"serve {arch} published width, {cfg.n_layers} of {full.n_layers} "
+        f"layers, {cfg.n_params() / 1e9:.2f} B weights bf16 (batch {b}, "
+        f"prompt {p}, gen {n}): prefill_s {line['prefill_s']!r}, "
+        f"{line['decode_ms']!r} ms per decode token, tokens_per_s "
+        f"{line['tokens_per_s']!r}, wall with weight init {wall:.3f} s, "
+        f"peak memory {line['peak_gb']:.3f} GB, flash launches "
+        f"{line['flash']} all \"tc\", logits finite"
+        + (f", MoE choices dropped at capacity in the prefill "
+           f"{line['dropped_share']!r}" if cfg.n_experts else "")
+        + f"; card {card}")
+    del params
+    torch.cuda.empty_cache()
+    return line
+
+
+def serve_twin(torch, mods, arch, card) -> None:
+    """Card against host in fp32 for one family: one layer group at the
+    published width (jamba: its smoke config, one whole period), the same
+    weights and prompts, SERVE_TWIN; prefill logits within
+    SERVE_LOGIT_RTOL of the largest |logit|, greedy tokens equal, and for
+    MoE every layer's router ids and keep mask equal."""
+    serve, lm, configs, tree_map = (mods["serve"], mods["lm"],
+                                    mods["configs"], mods["tree_map"])
+    if arch == "jamba-v0.1-52b":
+        cfg = configs.get_smoke_config(arch)
+    else:
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, dtype="float32", n_layers=full.period)
+    b, p, n = SERVE_TWIN["batch"], SERVE_TWIN["prompt_len"], SERVE_TWIN["gen"]
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    params = lm.init_params(g, cfg, device=DEV)
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=g, device=DEV)
+    card_calls, host_calls = [], []
+    with recording_moe(mods, card_calls):
+        a = serve.generate(params, prompts, cfg, gen=n)
+    host = tree_map(lambda t: t.cpu(), params)
+    t0 = time.time()
+    with recording_moe(mods, host_calls):
+        h = serve.generate(host, prompts.cpu(), cfg, gen=n)
+    host_s = time.time() - t0
+    la = a["prefill_logits"][..., :cfg.vocab].cpu()
+    lh = h["prefill_logits"][..., :cfg.vocab]
+    diff = float((la - lh).abs().max())
+    scale = float(lh.abs().max())
+    check(a["logits_finite"] and h["logits_finite"],
+          f"{arch} card vs host: a logit is not finite")
+    check(diff <= SERVE_LOGIT_RTOL * scale,
+          f"{arch} card vs host: prefill logits differ by {diff} (largest "
+          f"|logit| {scale}, limit {SERVE_LOGIT_RTOL} relative)")
+    check(len(card_calls) == len(host_calls),
+          f"{arch} card vs host: {len(card_calls)} MoE calls on the card, "
+          f"{len(host_calls)} on the host")
+    for i, ((ci, ck, _nd, _cg), (hi, hk, _hnd, hgap)) in enumerate(
+            zip(card_calls, host_calls)):
+        flips = int((ci.cpu() != hi).sum())
+        check(flips == 0,
+              f"{arch} card vs host: MoE call {i}: router ids differ at "
+              f"{flips} choices; the nearest top-k tie of that input is "
+              f"{hgap!r} apart on the host")
+        check(bool(torch.equal(ck.cpu(), hk)),
+              f"{arch} card vs host: MoE call {i}: keep masks differ")
+    check(bool(torch.equal(a["generated"].cpu(), h["generated"])),
+          f"{arch} card vs host: greedy tokens differ")
+    gap = min((c[3] for c in host_calls), default=None)
+    kept = sum(int(c[1].sum()) for c in host_calls if not c[2])
+    total = sum(c[1].numel() for c in host_calls if not c[2])
+    log(f"serve card vs host fp32 {cfg.name} ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}; batch {b}, prompt {p}, gen {n}): prefill "
+        f"logits max |diff| {diff!r} of largest |logit| {scale!r} (rel "
+        f"{diff / scale!r}), {n} greedy tokens equal"
+        + (f", {len(card_calls)} MoE calls with equal router ids and keep "
+           f"masks ({total - kept} of {total} prefill choices dropped), "
+           f"nearest top-k tie {gap!r} apart"
+           if cfg.n_experts else "")
+        + f"; host {host_s:.2f} s; card {card}")
+    del params, host, a, h
+    torch.cuda.empty_cache()
+
+
+def lm_families_path(torch, mods, counters, card: str) -> dict:
+    """Slice 11's path (phase 3e): the six archs of the MoE, Mamba, hybrid
+    and stub-frontend families served at published width, then each family
+    card against host in fp32."""
+    t0 = time.time()
+    lines = {arch: serve_wide_arch(torch, mods, counters, arch, layers, card)
+             for arch, layers in SERVE_FAMILIES}
+    for arch, _layers in SERVE_FAMILIES:
+        serve_twin(torch, mods, arch, card)
+    log(f"LM families phase 3e: {time.time() - t0:.1f} s wall")
+    return lines
 
 
 def _device_us(evt) -> float:
@@ -2761,7 +3150,7 @@ def main() -> int:
     from repro_torch.kernels.neighbor import ops as nops, ref as nref
     from repro_torch.launch import mine, serve, serve_mine
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import layers, lm
+    from repro_torch.models import frontends, layers, lm, moe
     from repro_torch.runtime import backend
     from repro_torch import optim, service
     from repro_torch.checkpoint import store
@@ -2774,6 +3163,7 @@ def main() -> int:
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
                 cancel=cancel, serve_mine=serve_mine, service=service,
                 aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
+                moe=moe, frontends=frontends,
                 configs=configs, dist=dist, tstep=tstep, optim=optim,
                 launch_train=launch_train, store=store, tree_map=tree_map,
                 ex_quickstart=quickstart, ex_mine_cluster=mine_cluster,
@@ -2804,7 +3194,7 @@ def main() -> int:
             wide_rows(torch, mods)
             rows += [*kernel_neighbor(torch, mods, sass["neighbor"]),
                      *kernel_cross(torch, mods, sass["neighbor"]),
-                     kernel_attention(torch, mods, sass["flash_sm90"])]
+                     *kernel_attention(torch, mods, sass["flash_sm90"])]
             t_path = time.time()
             mine_launches = main_path(torch, mods, counters)
             log(f"one-job path: {time.time() - t_path:.1f} s, launches "
@@ -2822,6 +3212,16 @@ def main() -> int:
             ex_launches, ex_row, ex_assign = examples_path(
                 torch, mods, counters, card)
             rows.append(ex_row)
+            families = lm_families_path(torch, mods, counters, card)
+            fam_launches = {
+                "flash_attention_internvl2":
+                    families["internvl2-26b"]["flash"],
+                "flash_attention_musicgen":
+                    families["musicgen-medium"]["flash"],
+                "flash_attention_olmoe": families["olmoe-1b-7b"]["flash"],
+                "flash_attention_gqa32_8":
+                    families["phi3.5-moe-42b-a6.6b"]["flash"]
+                    + families["jamba-v0.1-52b"]["flash"]}
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)
@@ -2854,6 +3254,7 @@ def main() -> int:
     launches.update({k: v for k, v in dist_launches.items()
                      if k.endswith("_cross")})
     launches["assign_clusters_d2048"] = ex_assign
+    launches.update(fam_launches)
     ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -2871,6 +3272,8 @@ def main() -> int:
                         "launches_distributed_path": dist_launches.get(
                             row["name"]),
                         "launches_examples_path": ex_launches.get(
+                            row["name"]),
+                        "launches_lm_families_path": fam_launches.get(
                             row["name"]),
                         "max_err": row["max_abs_err"],
                         "library_ms": row["library_ms"],

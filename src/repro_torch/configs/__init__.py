@@ -1,37 +1,33 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The modules are copies of the reference's (``repro/configs``), with the
-published config and a ``smoke()`` reduced config of the same family.  The
-registry lists only the archs whose families the port runs: the dense
-decoders.  MoE, Mamba, hybrid and frontend archs wait for ROADMAP.md queue 1
-item 4; asking for one raises a ``KeyError`` that says so.
+The modules are copies of the reference's (``repro/configs``), each with
+the published config and a ``smoke()`` reduced config of the same family,
+for all ten archs: dense, MoE, Mamba, the hybrid and the two stub-frontend
+backbones.
 """
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, SHAPES
 
 _ARCH_MODULES = {
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3p8b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
-
-# The reference's archs whose families (MoE, Mamba, hybrid, VLM, audio) the
-# port does not run yet.
-NOT_PORTED = ("internvl2-26b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
-              "musicgen-medium", "falcon-mamba-7b", "jamba-v0.1-52b")
 
 
 def _module(name: str):
     import importlib
 
     if name not in _ARCH_MODULES:
-        if name in NOT_PORTED:
-            raise KeyError(
-                f"arch {name!r} is not ported yet: its family waits for "
-                f"ROADMAP.md queue 1 item 4; ported: {ARCH_NAMES}")
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(_ARCH_MODULES[name])
 
@@ -49,7 +45,6 @@ __all__ = [
     "ShapeSpec",
     "SHAPES",
     "ARCH_NAMES",
-    "NOT_PORTED",
     "get_config",
     "get_smoke_config",
 ]

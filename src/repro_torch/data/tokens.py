@@ -9,8 +9,7 @@ The counterpart of the reference's ``repro/data/tokens.py``.  Each batch is
 drawn from a ``torch.Generator`` seeded from (seed, step)
 (:func:`step_generator`, the reference's ``fold_in(key, step)``), so the
 numbers differ from the reference's ``jax.random`` stream; the distribution
-and the replay contract are the same.  The stub-frontend embeddings wait for
-the frontends (ROADMAP.md queue 1 item 4).
+and the replay contract are the same.
 """
 
 from __future__ import annotations

@@ -1,15 +1,21 @@
 """Batched LM serving driver: prefill, then greedy or sampled decode.
 
 The counterpart of the reference's ``repro/launch/serve.py``, eager (no
-``torch.compile``).  Prefill attention runs the hand-written flash kernel;
-decode runs one-token steps against the KV cache.  Weights are synthetic
-(:func:`repro_torch.models.lm.init_params`): nothing is downloaded.
+``torch.compile``), for every arch of the registry: dense, MoE, Mamba,
+the hybrid and the two stub-frontend backbones (served on tokens alone,
+as the reference's ``serve`` is).  Prefill attention runs the
+hand-written flash kernel; decode runs one-token steps against the cache
+(K/V, and the Mamba sub-layers' conv and ssm states).  Weights are
+synthetic (:func:`repro_torch.models.lm.init_params`): nothing is
+downloaded.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises instead of running on the host.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \\
         --batch 4 --prompt-len 16 --gen 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu
 """
 
 from __future__ import annotations

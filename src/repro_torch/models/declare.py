@@ -5,8 +5,9 @@ reference (``repro/models/declare.py``).  From the same tree of
 declarations the port derives the initialised tensors
 (:func:`repro_torch.models.lm.init_params`), the decode cache and the
 logical-axes tree.  The abstract (shape-only) tree of the dry-run waits for
-ROADMAP.md queue 1 item 5; the reference's ``custom`` init and per-leaf
-dtype override serve only the Mamba mixer and come with it (item 4).
+ROADMAP.md queue 1 item 5.  A leaf may carry its own dtype (the Mamba
+mixer's ``a_log`` and ``dt_bias`` stay float32 in a bfloat16 model) and a
+``custom`` init, as in the reference.
 
 Trees are nested dicts; they are walked in sorted key order, the order
 ``jax.tree_util`` flattens a dict in, so the n-th draw of a generator
@@ -27,13 +28,19 @@ import torch
 class ParamDecl:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis names, len == len(shape)
-    init: str = "fan_in"              # fan_in | normal | zeros | ones
+    init: str = "fan_in"              # fan_in | normal | zeros | ones | custom
     scale: float = 1.0
+    custom: Any = None                # callable(generator, shape, dtype)
+    dtype: Optional[str] = None       # overrides the model dtype (e.g.
+                                      # "float32" for sensitive params)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
                              f"in rank")
+
+    def resolve_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
+        return getattr(torch, self.dtype) if self.dtype else model_dtype
 
 
 DeclTree = Dict[str, Any]  # nested dicts of ParamDecl
@@ -50,18 +57,27 @@ def init_tree(generator: torch.Generator, decls: DeclTree,
     """Initialised tensors for ``decls`` on ``device``.
 
     Random leaves draw from ``generator`` (which must live on ``device``) in
-    sorted key order, in float32, then cast: the same generator state gives
-    the same values at any model dtype, rounded.
+    sorted key order, in float32, then cast to the leaf's dtype (its own, or
+    ``dtype``): the same generator state gives the same values at any model
+    dtype, rounded.  A leaf of more than ``DRAW_CHUNK`` elements is drawn in
+    pieces of that many, so the float32 draw of a full-width expert stack
+    never holds the whole leaf a second time.
     """
     return tree_map(lambda d: _init_one(generator, d, dtype, device), decls)
 
 
+DRAW_CHUNK = 1 << 28
+
+
 def _init_one(generator: torch.Generator, d: ParamDecl, dtype: torch.dtype,
               device) -> torch.Tensor:
+    dtype = d.resolve_dtype(dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "custom":
+        return d.custom(generator, d.shape, dtype).to(device)
     if d.init == "normal":
         std = d.scale
     elif d.init == "fan_in":
@@ -72,9 +88,16 @@ def _init_one(generator: torch.Generator, d: ParamDecl, dtype: torch.dtype,
         std = d.scale / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(f"unknown init {d.init!r}")
-    out = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                      device=device)
-    return out.mul_(std).to(dtype)
+    # drawn flat in pieces: a leaf of one piece gets the values a draw of
+    # its shape would
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), DRAW_CHUNK):
+        part = torch.randn(min(DRAW_CHUNK, flat.numel() - start),
+                           generator=generator, dtype=torch.float32,
+                           device=device)
+        flat[start:start + part.numel()] = part.mul_(std)
+    return out
 
 
 def axes_tree(decls: DeclTree) -> Dict[str, Any]:

@@ -1,19 +1,20 @@
-"""The dense decoder: forward, prefill and one-token decode.
+"""The unified decoder: every arch the port runs is an instance of it.
 
-The counterpart of the reference's ``repro/models/lm.py`` for the dense
-family (attention mixer, dense FFN, no frontend).  Parameters for one period
-of ``cfg.pattern`` are stacked over ``cfg.n_groups`` under the reference's
-key names and shapes; the port walks the stack with a plain Python loop
-over views of it (``stacked[g]``), so under autograd each layer's gradient
-flows back into the stacked leaves.  Training recomputes each layer group
-in the backward pass as ``cfg.remat`` says (:func:`_remat`).  A Mamba
-mixer, an MoE FFN or a frontend raises ``NotImplementedError``: those wait
-for ROADMAP.md queue 1 item 4.
+The counterpart of the reference's ``repro/models/lm.py``.  One period of
+``cfg.pattern`` is a run of sub-layers, each an attention or Mamba mixer
+and an optional dense or MoE FFN; the period's parameters are stacked over
+``cfg.n_groups`` under the reference's key names and shapes.  The port
+walks the stack with a plain Python loop over views of it (``stacked[g]``),
+so under autograd each layer's gradient flows back into the stacked leaves.
+Training recomputes each layer group in the backward pass as ``cfg.remat``
+says (:func:`_remat`), and with "full" each sub-layer of a longer period
+too.  A stub frontend's embeddings (:mod:`.frontends`) go ahead of the
+tokens, with positions over the whole sequence.
 
 Entry points:
 - :func:`hidden_forward` — final normed hidden states (training, under
   autograd; the loss takes logits chunk by chunk through :func:`unembed`)
-- :func:`forward`       — logits over the whole sequence (+ aux loss, 0)
+- :func:`forward`       — logits over the whole sequence (+ the MoE aux loss)
 - :func:`prefill_step`  — forward over the prompt AND build the decode cache
 - :func:`decode_step`   — one-token step against the cache (in place)
 - :func:`init_params`   — synthetic weights from a ``torch.Generator``
@@ -44,27 +45,14 @@ from repro_torch.models.layers import (
     mlp_decls,
     norm_decls,
 )
+from repro_torch.models.mamba import mamba_block, mamba_decls, mamba_decode_step
+from repro_torch.models.moe import moe_decls, moe_ffn
 
 DecodeCache = Dict[str, Any]
-NOT_PORTED = "waits for ROADMAP.md queue 1 item 4"
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the dense family only."""
-    for mixer, ff in cfg.pattern:
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer!r} mixer {NOT_PORTED}")
-        if ff not in ("dense", None):
-            raise NotImplementedError(
-                f"{cfg.name}: the {ff!r} FFN {NOT_PORTED}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend {NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -72,18 +60,24 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _sub_decls(cfg: ModelConfig, ff: Optional[str]) -> DeclTree:
-    d: DeclTree = {"norm1": norm_decls(cfg), "attn": attention_decls(cfg)}
+def _sub_decls(cfg: ModelConfig, mixer: str, ff: Optional[str]) -> DeclTree:
+    d: DeclTree = {"norm1": norm_decls(cfg)}
+    if mixer == "attn":
+        d["attn"] = attention_decls(cfg)
+    else:
+        d["mamba"] = mamba_decls(cfg)
     if ff == "dense":
         d["norm2"] = norm_decls(cfg)
         d["mlp"] = mlp_decls(cfg)
+    elif ff == "moe":
+        d["norm2"] = norm_decls(cfg)
+        d["moe"] = moe_decls(cfg)
     return d
 
 
 def model_decls(cfg: ModelConfig) -> DeclTree:
-    check_supported(cfg)
-    group: DeclTree = {f"sub_{i}": _sub_decls(cfg, ff)
-                       for i, (_mixer, ff) in enumerate(cfg.pattern)}
+    group: DeclTree = {f"sub_{i}": _sub_decls(cfg, mixer, ff)
+                       for i, (mixer, ff) in enumerate(cfg.pattern)}
     decls: DeclTree = {
         "embed": ParamDecl((cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
                            "normal", scale=0.02),
@@ -144,27 +138,62 @@ def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(sub: Dict, h: torch.Tensor, cfg: ModelConfig, ff: Optional[str]):
+def _embed(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+           prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, with a stub frontend's (B, P, d) ahead of them."""
+    x = _embed_tokens(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _ffn(sub: Dict, h: torch.Tensor, cfg: ModelConfig, ff: Optional[str], *,
+         no_drop: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """h plus the sub-layer's FFN, and the MoE aux loss (None otherwise)."""
     if ff is None:
-        return h
-    return h + mlp(sub["mlp"], apply_norm(sub.get("norm2", {}), h, cfg), cfg)
+        return h, None
+    hn = apply_norm(sub.get("norm2", {}), h, cfg)
+    if ff == "dense":
+        return h + mlp(sub["mlp"], hn, cfg), None
+    y, aux = moe_ffn(sub["moe"], hn, cfg, no_drop=no_drop)
+    return h + y, aux
+
+
+def _apply_sub(sub: Dict, x: torch.Tensor, cfg: ModelConfig, idx: int,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sub-layer: (x, aux () float32)."""
+    mixer, ff = cfg.pattern[idx]
+    h = apply_norm(sub.get("norm1", {}), x, cfg)
+    if mixer == "attn":
+        x = x + attention(sub["attn"], h, cfg, positions)
+    else:
+        x = x + mamba_block(sub["mamba"], h, cfg)
+    x, aux = _ffn(sub, x, cfg, ff)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _group_body(gp: Dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor) -> torch.Tensor:
-    """One period of ``cfg.pattern``: attention + FFN sub-layers."""
-    for i, (_mixer, ff) in enumerate(cfg.pattern):
-        sub = gp[f"sub_{i}"]
-        hn = apply_norm(sub.get("norm1", {}), x, cfg)
-        x = x + attention(sub["attn"], hn, cfg, positions)
-        x = _ffn(sub, x, cfg, ff)
-    return x
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One period of ``cfg.pattern``: (x, the period's aux sum)."""
+    # nested remat: with "full", a period of several sub-layers (jamba's 8)
+    # otherwise holds every sub-layer's recompute graph at once in the
+    # backward pass
+    nest = cfg.remat == "full" and cfg.period > 1 and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.period):
+        args = (gp[f"sub_{i}"], x, cfg, i, positions)
+        x, a = (checkpoint(_apply_sub, *args, use_reentrant=False) if nest
+                else _apply_sub(*args))
+        aux = aux + a
+    return x, aux
 
 
 # The products "dots" remat keeps: matmuls with no batch dims (the
 # projections and the MLP), as the reference's
-# checkpoint_dots_with_no_batch_dims; the attention einsums (bmm) and every
-# element-wise pass are recomputed.
+# checkpoint_dots_with_no_batch_dims; the attention einsums and the expert
+# products (bmm) and every element-wise pass are recomputed.
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -177,11 +206,9 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _remat(fn, cfg: ModelConfig):
     """``fn`` wrapped for the backward pass as ``cfg.remat`` says: "none"
     keeps every activation; "full" keeps only the group's inputs and
-    recomputes the rest; "dots" keeps the projection products too.
-
-    The dense pattern has one sub-layer a group, so the reference's nested
-    remat of heterogeneous groups (period > 1) has nothing to nest here.
-    """
+    recomputes the rest (each sub-layer of the group under its own
+    checkpoint too, :func:`_group_body`); "dots" keeps the projection
+    products too."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "dots":
@@ -194,27 +221,31 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
-def hidden_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
+def hidden_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   prefix_embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final normed hidden states (B, S, d), aux_loss ()).
+    """Returns (final normed hidden states (B, P + S, d), aux_loss ()).
 
-    Differentiable: under autograd, gradients reach the stacked layer
-    leaves through the views ``stacked[g]``.
+    ``prefix_embeds`` (B, P, d), a stub frontend's, go ahead of the token
+    embeddings.  Differentiable: under autograd, gradients reach the
+    stacked layer leaves through the views ``stacked[g]``.
     """
-    check_supported(cfg)
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     body = _remat(_group_body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
-        x = body(_layer(params["layers"], g), x, cfg, positions)
+        x, a = body(_layer(params["layers"], g), x, cfg, positions)
+        aux = aux + a
     x = apply_norm(params.get("final_norm", {}), x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
-def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
+def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, vocab_padded) f32, aux_loss ())."""
-    x, aux = hidden_forward(params, tokens, cfg)
+    """Returns (logits (B, P + S, vocab_padded) f32, aux_loss ())."""
+    x, aux = hidden_forward(params, tokens, cfg, prefix_embeds)
     return _logits(params, x, cfg), aux
 
 
@@ -228,22 +259,39 @@ def unembed(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _sub_cache_decls(cfg: ModelConfig, mixer: str, batch: int,
+                     max_seq: int) -> DeclTree:
+    if mixer == "attn":
+        kv_shape = (batch, max_seq, cfg.n_kv_heads_padded, cfg.d_head)
+        axes = ("batch", "seq_kv", "kv_heads", "head_dim")
+        return {"k": ParamDecl(kv_shape, axes, "zeros"),
+                "v": ParamDecl(kv_shape, axes, "zeros")}
+    return {
+        "conv": ParamDecl((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                          ("batch", None, "ssm_inner"), "zeros"),
+        # the recurrence's state stays float32 in any model dtype
+        "ssm": ParamDecl((batch, cfg.d_inner, cfg.ssm_state),
+                         ("batch", "ssm_inner", "ssm_state"), "zeros",
+                         dtype="float32"),
+    }
+
+
 def cache_decls(cfg: ModelConfig, batch: int, max_seq: int) -> DeclTree:
-    check_supported(cfg)
-    kv_shape = (batch, max_seq, cfg.n_kv_heads_padded, cfg.d_head)
-    axes = ("batch", "seq_kv", "kv_heads", "head_dim")
-    group = {f"sub_{i}": {"k": ParamDecl(kv_shape, axes, "zeros"),
-                          "v": ParamDecl(kv_shape, axes, "zeros")}
-             for i in range(cfg.period)}
+    group = {f"sub_{i}": _sub_cache_decls(cfg, mixer, batch, max_seq)
+             for i, (mixer, _ff) in enumerate(cfg.pattern)}
     return declare.tree_map(lambda p: declare.stack_layers(p, cfg.n_groups),
                             group)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device: torch.device | str = "cuda") -> DecodeCache:
-    """Zeroed K/V caches in the model dtype: (n_groups, B, max_seq, KV, D)."""
+    """Zeroed caches, stacked over the groups: K/V (n_groups, B, max_seq,
+    KV, D) in the model dtype for attention sub-layers; conv (n_groups, B,
+    K-1, d_inner) in the model dtype and ssm (n_groups, B, d_inner,
+    d_state) float32 for Mamba ones."""
     return declare.tree_map(
-        lambda d: torch.zeros(d.shape, dtype=model_dtype(cfg), device=device),
+        lambda d: torch.zeros(d.shape, dtype=d.resolve_dtype(model_dtype(cfg)),
+                              device=device),
         cache_decls(cfg, batch, max_seq))
 
 
@@ -258,19 +306,26 @@ def decode_step(params: Dict, cache: DecodeCache, tokens: torch.Tensor,
     """One-token decode.  Returns (logits (B, 1, vocab_padded), cache).
 
     ``tokens`` is (B, 1); ``pos`` the position being written.  The cache is
-    updated in place and returned.  Inference only: runs under
-    ``torch.no_grad()``, so trained weights (autograd leaves) decode too.
+    updated in place and returned: K/V at ``pos``, and each Mamba
+    sub-layer's conv and ssm states.  MoE routes without drops.  Inference
+    only: runs under ``torch.no_grad()``, so trained weights (autograd
+    leaves) decode too.
     """
-    check_supported(cfg)
     x = _embed_tokens(params, tokens, cfg)
     for g in range(cfg.n_groups):
         gp, gc = _layer(params["layers"], g), _layer(cache, g)
-        for i, (_mixer, ff) in enumerate(cfg.pattern):
+        for i, (mixer, ff) in enumerate(cfg.pattern):
             sub, sc = gp[f"sub_{i}"], gc[f"sub_{i}"]
             hn = apply_norm(sub.get("norm1", {}), x, cfg)
-            y, _k, _v = attention_decode(sub["attn"], hn, cfg, sc["k"],
-                                         sc["v"], pos)
-            x = _ffn(sub, x + y, cfg, ff)
+            if mixer == "attn":
+                y, _k, _v = attention_decode(sub["attn"], hn, cfg, sc["k"],
+                                             sc["v"], pos)
+            else:
+                y, conv, ssm = mamba_decode_step(sub["mamba"], hn, cfg,
+                                                 sc["conv"], sc["ssm"])
+                sc["conv"].copy_(conv)
+                sc["ssm"].copy_(ssm)
+            x, _aux = _ffn(sub, x + y, cfg, ff, no_drop=True)
     x = apply_norm(params.get("final_norm", {}), x, cfg)
     return _logits(params, x, cfg), cache
 
@@ -282,33 +337,43 @@ def decode_step(params: Dict, cache: DecodeCache, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill_step(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 max_seq: Optional[int] = None
+                 max_seq: Optional[int] = None,
+                 prefix_embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, DecodeCache]:
     """Forward over the prompt, returning (last-position logits, cache).
 
-    The cache is sized ``max_seq`` (>= prompt length) so decode can continue
-    in place; attention caches the full K/V prefix.  Prefill attention is
-    the flash kernel followed by the padded-head mask, the same attention
-    as :func:`forward` (the reference's prefill leaves the mask out; see
-    ROADMAP.md section 3).  Inference only: runs under ``torch.no_grad()``,
-    which keeps the flash kernel's route for trained weights.
+    ``prefix_embeds`` (B, P, d) go ahead of the tokens, so the sequence is
+    P + S long.  The cache is sized ``max_seq`` (>= that length) so decode
+    can continue in place; attention caches the full K/V prefix, Mamba
+    sub-layers the conv tail and the final h, from the same pass.  MoE
+    drops at capacity, as in :func:`forward`.  Prefill attention is the
+    flash kernel followed by the padded-head mask, the same attention as
+    :func:`forward` (the reference's prefill leaves the mask out; see
+    ROADMAP.md section 3).  Inference only: runs under
+    ``torch.no_grad()``, which keeps the flash kernel's route for trained
+    weights.
     """
-    check_supported(cfg)
-    b, seq = tokens.shape
+    x = _embed(params, tokens, cfg, prefix_embeds)
+    b, seq = x.shape[:2]
     max_seq = max_seq or seq
     if max_seq < seq:
         raise ValueError(f"max_seq {max_seq} < prompt length {seq}")
-    x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(seq, dtype=torch.int32, device=x.device)
     cache = init_decode_cache(cfg, b, max_seq, device=x.device)
     for g in range(cfg.n_groups):
         gp, gc = _layer(params["layers"], g), _layer(cache, g)
-        for i, (_mixer, ff) in enumerate(cfg.pattern):
+        for i, (mixer, ff) in enumerate(cfg.pattern):
             sub, sc = gp[f"sub_{i}"], gc[f"sub_{i}"]
             hn = apply_norm(sub.get("norm1", {}), x, cfg)
-            y, k, v = attention_prefill(sub["attn"], hn, cfg, positions)
-            sc["k"][:, :seq] = k
-            sc["v"][:, :seq] = v
-            x = _ffn(sub, x + y, cfg, ff)
+            if mixer == "attn":
+                y, k, v = attention_prefill(sub["attn"], hn, cfg, positions)
+                sc["k"][:, :seq] = k
+                sc["v"][:, :seq] = v
+            else:
+                y, conv, ssm = mamba_block(sub["mamba"], hn, cfg,
+                                           return_state=True)
+                sc["conv"].copy_(conv)
+                sc["ssm"].copy_(ssm)
+            x, _aux = _ffn(sub, x + y, cfg, ff)
     x = apply_norm(params.get("final_norm", {}), x, cfg)
     return _logits(params, x[:, -1:, :], cfg), cache

@@ -1,4 +1,4 @@
-"""Train / prefill / serve steps for the dense family.
+"""Train / prefill / serve steps.
 
 The counterpart of the reference's ``repro/train/step.py``.  The steps are
 what the launcher drives.  The cancellation/checkpoint machinery wraps them
@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokens import synthetic_token_batch
 from repro_torch.models import lm
+from repro_torch.models.frontends import synthetic_prefix
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -108,11 +109,13 @@ def _chunk_terms(params: Dict, x: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(
     params: Dict,
-    tokens: torch.Tensor,     # (B, S) int64
-    labels: torch.Tensor,     # (B, S) next-token targets
+    tokens: torch.Tensor,     # (B, S_text) int64
+    labels: torch.Tensor,     # (B, S_text) next-token targets
     cfg: ModelConfig,
+    prefix_embeds: Optional[torch.Tensor] = None,   # (B, P, d) stub frontend
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    x, aux = lm.hidden_forward(params, tokens, cfg)
+    x, aux = lm.hidden_forward(params, tokens, cfg, prefix_embeds)
+    x = x[:, -tokens.shape[1]:, :]  # prefix positions carry no labels
     b, s, d = x.shape
 
     nc = cfg.loss_chunk
@@ -139,9 +142,11 @@ def loss_fn(
 
 def loss_and_grads(params: Dict, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig):
-    """(loss, parts, grads): one forward and backward over ``batch``;
-    ``grads`` mirrors ``params``."""
-    loss, parts = loss_fn(params, batch["tokens"], batch["labels"], cfg)
+    """(loss, parts, grads): one forward and backward over ``batch``
+    (tokens, labels and, for a stub frontend, prefix_embeds); ``grads``
+    mirrors ``params``."""
+    loss, parts = loss_fn(params, batch["tokens"], batch["labels"], cfg,
+                          batch.get("prefix_embeds"))
     flat = iter(torch.autograd.grad(loss, tree_leaves(params)))
     return loss, parts, tree_map(lambda _: next(flat), params)
 
@@ -155,7 +160,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     schedule: Optional[Callable] = None):
     """(state, batch) -> (state, metrics).  batch: dict of tensors.
 
-    metrics: loss, ce, aux (0 for the dense family), grad_norm, lr — 0-d
+    metrics: loss, ce, aux (the MoE load-balance loss, 0 without MoE),
+    grad_norm, lr — 0-d
     tensors on the state's device (read them with ``float()``).
     """
     schedule = schedule or (lambda s: 1.0)
@@ -178,7 +184,8 @@ def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None):
     """(params, batch) -> (last-token logits, decode cache)."""
 
     def prefill(params, batch: Dict[str, torch.Tensor]):
-        return lm.prefill_step(params, batch["tokens"], cfg, max_seq=max_seq)
+        return lm.prefill_step(params, batch["tokens"], cfg, max_seq=max_seq,
+                               prefix_embeds=batch.get("prefix_embeds"))
 
     return prefill
 
@@ -194,8 +201,13 @@ def make_serve_step(cfg: ModelConfig):
 
 def make_train_batch(generator: torch.Generator, cfg: ModelConfig,
                      batch: int, seq: int) -> Dict[str, torch.Tensor]:
-    """A synthetic batch on the generator's device: tokens and labels."""
-    lm.check_supported(cfg)
+    """A synthetic batch on the generator's device: tokens and labels of
+    ``seq - cfg.prefix_len`` positions and, for a stub frontend, bfloat16
+    prefix embeddings drawn after them from the same generator."""
     tb = synthetic_token_batch(generator, batch=batch,
                                seq=seq - cfg.prefix_len, vocab=cfg.vocab)
-    return {"tokens": tb.tokens, "labels": tb.labels}
+    out = {"tokens": tb.tokens, "labels": tb.labels}
+    pe = synthetic_prefix(generator, cfg, batch)
+    if pe is not None:
+        out["prefix_embeds"] = pe
+    return out

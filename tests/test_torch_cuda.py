@@ -6,7 +6,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``-k flash`` for the attention kernels alone, ``-k neighbor`` for the
-DBSCAN ones.)
+DBSCAN ones, ``-k "moe or mamba or families"`` for the MoE FFN, the Mamba
+mixer and the six archs that use them, card against host.)
 
 (``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
 """
@@ -729,6 +730,148 @@ def test_flash_tc_route_leaves_unaligned_views_to_simt(gen):
     assert aops.flash_attention.launches_by_route["tc"] == before["tc"] + 1
     tol = ATTN_TOL[torch.bfloat16]
     assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_route_internvl2_heads_48_on_8(gen, causal):
+    """InternVL2-26B's layout: 48 query heads on 8 KV heads of 128."""
+    q = _bf16(gen, 2, 700, 48, 128)
+    k, v = _bf16(gen, 2, 700, 8, 128), _bf16(gen, 2, 700, 8, 128)
+    _check_tc(q, k, v, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_route_musicgen_padded_heads(gen, causal):
+    """MusicGen-medium's layout: 24 heads of 64 padded to 32, its KV heads
+    with them.  The kernel attends on all 32 (the padded heads' weights are
+    drawn like the others); the decoder masks the padded heads' outputs
+    after it (``layers._head_mask``)."""
+    q, k, v = (_bf16(gen, 2, 700, 32, 64) for _ in range(3))
+    _check_tc(q, k, v, causal)
+
+
+# -- the MoE FFN, the Mamba mixer and the six archs that use them: the card
+# against the same code on the host (the plain PyTorch of models/moe.py and
+# models/mamba.py; attention through the flash kernel on the card)
+
+
+def _host_and_card(arch, seed=0, **change):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import backend
+    from repro_torch.tree import tree_map
+
+    backend.load("cuda")  # fp32 matmul at "highest"
+    cfg = dataclasses.replace(get_smoke_config(arch), **change)
+    host = lm.init_params(torch.Generator().manual_seed(seed), cfg,
+                          device="cpu")
+    return cfg, host, tree_map(lambda t: t.cuda(), host)
+
+
+def _sub(params, kind):
+    for sub in params["layers"].values():
+        if kind in sub:
+            return {k: v[0] for k, v in sub[kind].items()}
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+                                  "jamba-v0.1-52b"])
+@pytest.mark.parametrize("cf,moe_chunk", [(0.5, 1024), (0.5, 8), (64.0, 8)])
+@pytest.mark.parametrize("no_drop", [False, True])
+def test_moe_ffn_on_the_card_matches_the_host(gen, arch, cf, moe_chunk,
+                                              no_drop):
+    from repro_torch.models import moe
+
+    cfg, host, card = _host_and_card(arch, capacity_factor=cf,
+                                     moe_chunk=moe_chunk)
+    hm, cm = _sub(host, "moe"), _sub(card, "moe")
+    x = torch.randn(2, 48, cfg.d_model, generator=gen)
+    y_h, aux_h = moe.moe_ffn(hm, x, cfg, no_drop=no_drop)
+    y_c, aux_c = moe.moe_ffn(cm, x.cuda(), cfg, no_drop=no_drop)
+    ids_h, keep_h = moe.routing(hm, x, cfg, no_drop=no_drop)
+    ids_c, keep_c = moe.routing(cm, x.cuda(), cfg, no_drop=no_drop)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_c.cpu(), ids_h) and torch.equal(keep_c.cpu(),
+                                                           keep_h)
+    assert torch.allclose(y_c.cpu(), y_h, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux_c) - float(aux_h)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_two_launches_on_the_card_are_bitwise_equal(gen, dtype):
+    """The combine adds each token's k outputs in a fixed order (no float
+    atomics): the same input gives the same bits."""
+    from repro_torch.models import moe
+
+    cfg, _host, card = _host_and_card("olmoe-1b-7b", capacity_factor=0.5)
+    cm = {k: v.to(dtype) for k, v in _sub(card, "moe").items()}
+    x = torch.randn(2, 64, cfg.d_model, generator=gen).to("cuda", dtype)
+    a, aux_a = moe.moe_ffn(cm, x, cfg)
+    b, aux_b = moe.moe_ffn(cm, x, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 32])
+@pytest.mark.parametrize("length", [32, 13])
+def test_mamba_on_the_card_matches_the_host(gen, chunk, length):
+    """mamba_block with its states, then mamba_decode_step chained."""
+    from repro_torch.models import mamba
+
+    cfg, host, card = _host_and_card("falcon-mamba-7b", ssm_chunk=chunk)
+    hm, cm = _sub(host, "mamba"), _sub(card, "mamba")
+    x = torch.randn(2, length + 4, cfg.d_model, generator=gen)
+    out_h = mamba.mamba_block(hm, x[:, :length], cfg, return_state=True)
+    out_c = mamba.mamba_block(cm, x[:, :length].cuda(), cfg,
+                              return_state=True)
+    for a, b in zip(out_c, out_h):
+        assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    assert out_c[2].dtype == torch.float32
+    (_yh, conv_h, ssm_h), (_yc, conv_c, ssm_c) = out_h, out_c
+    for t in range(length, length + 4):
+        yh, conv_h, ssm_h = mamba.mamba_decode_step(hm, x[:, t:t + 1], cfg,
+                                                    conv_h, ssm_h)
+        yc, conv_c, ssm_c = mamba.mamba_decode_step(cm, x[:, t:t + 1].cuda(),
+                                                    cfg, conv_c, ssm_c)
+        for a, b in ((yc, yh), (conv_c, conv_h), (ssm_c, ssm_h)):
+            assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "musicgen-medium",
+                                  "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_families_serve_on_the_card_like_the_host(gen, arch):
+    """A smoke config's prefill (with its prefix for a stub frontend) and
+    greedy decode on the card against the host: logits within 1e-4 of the
+    largest, tokens equal, one flash launch an attention layer."""
+    from repro_torch.models import frontends, lm
+
+    cfg, host, card = _host_and_card(arch)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+    pe = frontends.synthetic_prefix(gen, cfg, 2, dtype=torch.float32)
+    n_attn = cfg.n_groups * sum(m == "attn" for m, _ff in cfg.pattern)
+    outs = []
+    for params, dev in ((host, "cpu"), (card, "cuda")):
+        before = aops.flash_attention.launches
+        max_seq = 20 + cfg.prefix_len + 4
+        logits, cache = lm.prefill_step(
+            params, toks.to(dev), cfg, max_seq=max_seq,
+            prefix_embeds=None if pe is None else pe.to(dev))
+        launched = aops.flash_attention.launches - before
+        assert launched == (n_attn if dev == "cuda" else 0)
+        seq, stream = max_seq - 4, [logits.cpu()]
+        for i in range(4):
+            tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            logits, cache = lm.decode_step(params, cache, tok, seq + i, cfg)
+            stream.append(logits.cpu())
+        outs.append(stream)
+    for h, c in zip(*outs):
+        h, c = h[..., :cfg.vocab], c[..., :cfg.vocab]
+        assert float((h - c).abs().max()) <= 1e-4 * float(h.abs().max())
+        assert torch.equal(h.argmax(-1), c.argmax(-1))
 
 
 def test_fused_kernel_keeps_a_nan_row_in_its_own_centroid(gen):

@@ -3,8 +3,10 @@ CPU LM serving batch, the durable serving tier's modules (replication,
 the fleet and its worker entry point), the distributed lane (a ring
 degree on a mesh of two host shards, the elastic restore) and LM training
 (a two-step CPU training job; the optimizer, the token pipeline and the
-training examples) and the four tour examples in a fresh interpreter load
-neither jax nor anything of the reference package."""
+training examples), the four tour examples and the MoE, Mamba and
+frontend modules (a hybrid jamba serving batch, a musicgen prefill with
+its prefix) in a fresh interpreter load neither jax nor anything of the
+reference package."""
 
 import os
 import subprocess
@@ -52,6 +54,19 @@ import repro_torch.examples.train_lm, repro_torch.examples.preemption_resume
 import repro_torch.examples.quickstart, repro_torch.examples.mine_cluster
 import repro_torch.examples.service_demo
 import repro_torch.examples.embedding_clustering
+import repro_torch.models.moe, repro_torch.models.mamba
+from repro_torch.models import frontends, lm
+out = serve.serve_batch(arch="jamba-v0.1-52b", smoke=True, batch=2,
+                        prompt_len=6, gen=3, device="cpu")
+assert tuple(out["generated"].shape) == (2, 3), out
+from repro_torch.configs import get_smoke_config
+cfg = get_smoke_config("musicgen-medium")
+gen = torch.Generator().manual_seed(0)
+params = lm.init_params(gen, cfg, device="cpu")
+pe = frontends.synthetic_prefix(gen, cfg, 2, dtype=torch.float32)
+logits, _cache = lm.prefill_step(params, torch.zeros((2, 5), dtype=torch.long),
+                                 cfg, prefix_embeds=pe)
+assert tuple(logits.shape) == (2, 1, cfg.vocab_padded), logits.shape
 from repro_torch.launch.train import run_training_job
 out = run_training_job(arch="olmo-1b", smoke=True, steps=2, batch=2, seq=8,
                        workdir=tempfile.mkdtemp(), device="cpu")

@@ -1,18 +1,19 @@
 """The port's LM serving driver on the CPU: ``serve_batch`` and its CLI.
 
-On the card, ``chip_smoke.py`` drives the same entry point at OLMo-1B's full
-width and checks that every prefill launched the flash kernel."""
+On the card, ``chip_smoke.py`` drives the same entry point at the full width
+of every arch (OLMo-1B in phase 3c, the other six families in 3e) and checks
+that every attention layer of a prefill launched the flash kernel."""
 
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_NAMES
 from repro_torch.core.cancellation import CancellationToken
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.launch import serve
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "glm4-9b", "minicpm-2b",
-                                  "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_serve_batch_on_cpu(arch):
     out = serve.serve_batch(arch=arch, smoke=True, batch=3, prompt_len=7,
                             gen=5, device="cpu")
@@ -69,3 +70,17 @@ def test_cli_takes_device_cpu(capsys):
     assert "prefill" in out and "tok/s" in out and "sample:" in out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "olmo-1b", "--device", "tpu"])
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "musicgen-medium",
+                                  "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_cli_serves_every_family_on_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke --device
+    cpu``: prefill, greedy decode, a sample; no flash launch on the host."""
+    before = attn_ops.flash_attention.launches
+    serve.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                "9", "--gen", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "prefill" in out and "tok/s" in out and "sample:" in out
+    assert attn_ops.flash_attention.launches == before

@@ -4,7 +4,9 @@ reference's ``repro.train.step``.
 Weights and optimizer state come from the reference
 (``init_params`` / ``init_train_state``) through ``convert``; tokens from a
 numpy seed.  Every dense smoke arch: olmo-1b, minicpm-2b (padded heads),
-glm4-9b (GQA) and phi3-mini.  Tolerances: loss 1e-5 relative and every
+glm4-9b (GQA) and phi3-mini; and the six others: the MoE archs with their
+load-balance loss in the total, the Mamba and hybrid archs, the two
+stub-frontend archs with prefix embeddings ahead of the scored tokens.  Tolerances: loss 1e-5 relative and every
 gradient leaf within 1e-4 of its largest |g|; three train steps' loss and
 grad_norm within 1e-4 relative, lr and step exact.  The training attention
 route (``layers._sdpa``) and the flash wrapper's are checked apart.
@@ -35,6 +37,8 @@ from repro_torch.train import step as tstep
 from repro_torch.tree import tree_leaves
 
 DENSE = ("olmo-1b", "minicpm-2b", "glm4-9b", "phi3-mini-3.8b")
+NEW = ("internvl2-26b", "musicgen-medium", "olmoe-1b-7b",
+       "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b", "jamba-v0.1-52b")
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 STEP_RTOL = 1e-4
@@ -53,6 +57,16 @@ def _batch(cfg, seed):
     return ({"tokens": toks, "labels": labs},
             {"tokens": torch.from_numpy(toks).long(),
              "labels": torch.from_numpy(labs).long()})
+
+
+def _with_prefix(jcfg, jb, tb, seed):
+    """Add prefix embeddings to both batches for a stub-frontend arch."""
+    if not jcfg.prefix_len:
+        return jb, tb
+    pe = (np.random.default_rng(seed).standard_normal(
+        (B, jcfg.prefix_len, jcfg.d_model)) * 0.02).astype(np.float32)
+    return (dict(jb, prefix_embeds=pe),
+            dict(tb, prefix_embeds=torch.from_numpy(pe)))
 
 
 def _params(jcfg, seed=0):
@@ -90,7 +104,30 @@ def test_loss_and_grads_match_reference(arch, loss_chunk, attn_chunk):
     _grads_close(grads, jg)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("loss_chunk", [0, 2], ids=["ce", "chunked_ce"])
+def test_loss_and_grads_of_the_new_families_match_reference(arch,
+                                                            loss_chunk):
+    """The total loss (CE plus the MoE aux term), its parts and every
+    gradient leaf; capacity drops in the forward as in the reference."""
+    jcfg, tcfg = _cfgs(arch, loss_chunk=loss_chunk)
+    jp, tp = _params(jcfg)
+    jb, tb = _with_prefix(jcfg, *_batch(jcfg, seed=1), seed=2)
+    (jloss, jparts), jg = jax.jit(jax.value_and_grad(
+        lambda p: jstep.loss_fn(p, jb["tokens"], jb["labels"], jcfg,
+                                jb.get("prefix_embeds")),
+        has_aux=True))(jp)
+    loss, parts, grads = tstep.loss_and_grads(tp, tb, tcfg)
+    loss = loss.detach()
+    assert abs(float(loss) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    assert abs(float(parts["ce"].detach()) - float(jparts["ce"])) <= \
+        LOSS_RTOL * abs(float(jparts["ce"]))
+    assert abs(float(parts["aux"].detach()) - float(jparts["aux"])) <= 1e-6
+    assert (float(parts["aux"].detach()) > 0) == (tcfg.n_experts > 0)
+    _grads_close(grads, jg)
+
+
+@pytest.mark.parametrize("arch", DENSE + ("olmoe-1b-7b", "jamba-v0.1-52b"))
 def test_remat_modes_give_the_same_gradient_bits(arch):
     _jcfg, tcfg = _cfgs(arch, loss_chunk=2, attn_chunk=8)
     _jp, tp = _params(_jcfg)
@@ -114,7 +151,8 @@ def test_unknown_remat_raises():
         tstep.loss_and_grads(tp, tb, tcfg)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("internvl2-26b", "olmoe-1b-7b",
+                                          "jamba-v0.1-52b"))
 def test_train_steps_match_reference(arch):
     jcfg, tcfg = _cfgs(arch)
     js = jstep.init_train_state(jax.random.PRNGKey(0), jcfg)
@@ -125,10 +163,10 @@ def test_train_steps_match_reference(arch):
     tf = tstep.make_train_step(tcfg, AdamWConfig(lr=1e-3),
                                make_schedule("wsd", 3))
     for i in range(3):
-        jb, tb = _batch(jcfg, seed=10 + i)
+        jb, tb = _with_prefix(jcfg, *_batch(jcfg, seed=10 + i), seed=20 + i)
         js, jm = jf(js, jb)
         ts, tm = tf(ts, tb)
-        for key in ("loss", "grad_norm", "ce"):
+        for key in ("loss", "grad_norm", "ce", "aux"):
             assert abs(float(tm[key]) - float(jm[key])) <= \
                 STEP_RTOL * abs(float(jm[key])), (i, key)
         assert float(tm["lr"]) == float(jm["lr"])
@@ -295,3 +333,33 @@ def test_serve_step_decodes_after_prefill():
                           torch.cat([tokens, nxt], dim=1), tcfg)
     np.testing.assert_allclose(out[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_train_state_from_jax_keeps_float32_mamba_leaves():
+    """A bf16 jamba state: a_log and dt_bias float32 in the params, the
+    moments and the master copy; the expert stacks bf16 in the params."""
+    jcfg = dataclasses.replace(jax_smoke("jamba-v0.1-52b"), dtype="bfloat16")
+    js = jstep.init_train_state(jax.random.PRNGKey(3), jcfg)
+    ts = train_state_from_jax(dataclasses.asdict(jax.tree.map(np.asarray,
+                                                              js)))
+    for tree in (ts.params, ts.opt["mu"], ts.opt["master"]):
+        mamba = tree["layers"]["sub_0"]["mamba"]
+        assert mamba["a_log"].dtype == mamba["dt_bias"].dtype == \
+            torch.float32
+    assert ts.params["layers"]["sub_1"]["moe"]["w_up"].dtype == \
+        torch.bfloat16
+    assert ts.opt["master"]["layers"]["sub_1"]["moe"]["w_up"].dtype == \
+        torch.float32
+    np.testing.assert_array_equal(
+        ts.params["layers"]["sub_0"]["mamba"]["a_log"].detach().numpy(),
+        np.asarray(js.params["layers"]["sub_0"]["mamba"]["a_log"]))
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_training_job_runs_every_family(arch, tmp_path):
+    from repro_torch.launch.train import run_training_job
+
+    out = run_training_job(arch=arch, smoke=True, steps=2, batch=2, seq=16,
+                           workdir=str(tmp_path), device="cpu")
+    assert out["final_state"] == "SUCCEEDED"
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
