@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's mining, LM serving and LM training paths, the
-serving of every LM family, and its tour examples on one CUDA card and
-check them.
+serving of every LM family, its tour examples, the pod-scale K-Means
+cell, the GPipe pipeline and the dry-run on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -199,7 +199,36 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    versions; (d) the assignment kernel at that shape and the fit's first
    centroids, indices and distances bit-equal to the plain version, timed
    beside it and ``cdist`` (a row of its own in the kernels line).
-6. Launch counters are zeroed just before each path and read just after;
+6. Slice 12's path, run last: (a) the reference's pod-scale K-Means cell
+   (``launch/dryrun_cluster.py``'s shape: 2^24 x 128 fp32 points of
+   ``make_blobs`` with 4,096 centres, drawn on the card, and 4,096 of them
+   as centroids) through ``core.distributed.clustering_step_for_dryrun``
+   on meshes repeating the card, 2 shards then 16 (one fused launch takes
+   n d < 2^31 only): pass-1 and pass-2 launches counted, the two results
+   bitwise equal, the assignments equal to the plain step's (the
+   ``use_kernel=False`` branch on 16 shards), counts exact, new centroids
+   within 1e-4 of the largest |x|, shift and inertia within 1e-4
+   relative; pass 1 over each 2-shard shard and pass 2 timed by events
+   (the kernels line's ``fused_masked_partials_pod`` row, pass 1 over the
+   first shard held to its plain version: indices and counts equal, sums
+   within 1e-4 of count x largest |x|), the step walls, the peak memory,
+   and the dry-run's inventory of the step on a one-device mesh beside
+   it; (b) GPipe on the card: OLMo-1B's 16 layers in 4 stages on
+   ``Mesh((cuda:0,) * 4, axis="pipe")``, bf16, 4 microbatches of 1 x 2048
+   under no_grad, the hidden states equal (``torch.equal``) to
+   ``hidden_forward`` per microbatch with 64 more "tc" flash launches;
+   then 4 one-layer stages at that width in fp32 under autograd, every
+   gradient leaf within 1e-4 of its largest |g| of the unpipelined
+   loss's; (c) the dry-run held to the card: phase 3d's OLMo-1B train
+   cell traced on a one-device mesh, its state's argument bytes equal to
+   what 3d allocated (within 512 bytes a tensor), argument + temp bytes
+   within 2x of 3d's peak, its FLOPs beside ``train_flops``; and
+   ``launch.dryrun`` on the single pod for olmo-1b train_4k, olmoe-1b-7b
+   train_4k, jamba prefill_32k, internvl2-26b decode_32k and
+   falcon-mamba-7b long_500k (processes of their own on the host, started
+   before (a) and read after (b)), each record's argument GB and FLOPs
+   logged.
+7. Launch counters are zeroed just before each path and read just after;
    every kernel of a path must have launched in it.  Prints one ``kernels``
    JSON line and, last, the device line.  Any failed check exits non-zero
    before that line.
@@ -353,6 +382,32 @@ TRAIN_GRAD_TOL = 1e-3
 # pooled points are d_model = 2048 wide, so the assignment kernel takes its
 # wide search (d > ops.WIDE_D).
 EMBED = dict(arch="olmo-1b", docs=1024, seq=128, k=4)
+# Phase 6: the reference's pod-scale K-Means cell (its dryrun_cluster
+# shape), x 8.6 GB of fp32, run as one step on meshes of 2 and 16 shards
+# of the card (n d = 2^31 is one more than one fused launch takes); the
+# plain step on 16 shards, whose (n / 16, k) score and one-hot matrices
+# fit beside x.  New centroids within 1e-4 of the largest |x|, shift and
+# inertia within 1e-4 relative.
+POD = dict(n=1 << 24, d=128, k=4096)
+POD_SHARDS = (2, 16)
+POD_TOL = 1e-4
+# GPipe on the card: OLMo-1B's 16 layers in 4 stages, 4 microbatches of
+# 1 x 2048; the gradient check at 4 one-layer stages, fp32, 4 x (1 x 256)
+PIPE = dict(arch="olmo-1b", stages=4, microbatches=4, batch=1, seq=2048)
+PIPE_GRAD = dict(layers=4, batch=1, seq=256)
+PIPE_GRAD_TOL = 1e-4
+# The dry-run: one cell of each family on the single pod, and how far the
+# OLMo-1B train cell's argument + temp bytes may stand from phase 3d's peak
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
+                ("jamba-v0.1-52b", "prefill_32k"),
+                ("internvl2-26b", "decode_32k"),
+                ("falcon-mamba-7b", "long_500k"))
+DRYRUN_RATIO_LIMIT = 2.0
+# PyTorch's caching allocator: blocks of up to 1 MiB are rounded to 512
+# bytes; a larger block is split only when more than 1 MiB would remain
+ALLOC_SMALL_ROUND = 511
+ALLOC_SPLIT = 1 << 20
+DRYRUN_TIMEOUT = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -1299,7 +1354,12 @@ def train_full(torch, mods, counters, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset(counters)
     t0 = time.time()
+    before = torch.cuda.memory_allocated()
     state = tstep.init_train_state(SEED, cfg, device=DEV)
+    # what the state holds on the card, for phase 6 (c)'s dry-run check
+    state_alloc = torch.cuda.memory_allocated() - before
+    state_tensors = len(mods["tree_leaves"](state.params)
+                        + mods["tree_leaves"](state.opt)) + 1   # + step
     n_params = sum(p.numel() for _n, p in _named_leaves(state.params))
     batch = tstep.make_train_batch(
         torch.Generator(device=DEV).manual_seed(SEED), cfg, b, s)
@@ -1336,7 +1396,8 @@ def train_full(torch, mods, counters, card: str) -> dict:
     flops = train_flops(cfg, n_params, b, s)
     peak = torch.cuda.max_memory_allocated()
     out = dict(step_s=med, tokens_per_s=b * s / med, flops=flops,
-               mfu=flops / med / PEAK_BF16, peak_gb=peak / 1e9,
+               mfu=flops / med / PEAK_BF16, peak_gb=peak / 1e9, peak=peak,
+               state_alloc=state_alloc, state_tensors=state_tensors,
                losses=losses, times=times, launches=launches)
     log(f"train (a) {TRAIN['arch']} full width and depth ({cfg.n_layers} "
         f"layers, bf16, fp32 master/mu/nu, remat {cfg.remat}, wsd, batch "
@@ -2152,6 +2213,350 @@ def profile_serving(torch, mods, cfg) -> None:
     profile_window(torch, "warm-up", lambda: torch.ones(8, device=DEV) + 1)
     profile_window(torch, f"prefill (batch {b}, prompt {p})", prefill)
     profile_window(torch, f"decode ({n} steps, batch {b})", decode)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the pod-scale K-Means cell on one card, the GPipe pipeline, and
+# the dry-run held to the card
+# ---------------------------------------------------------------------------
+
+
+def _event_ms(torch, fn) -> tuple:
+    """(device ms of one call of ``fn`` by CUDA events, its result)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def start_dryruns(mods) -> tuple:
+    """Phase 6 (c)'s five dry-run cells, each a ``launch.dryrun`` process
+    of its own on the host (the meta device), started now so that they run
+    beside (a) and (b): (their output directory, the processes)."""
+    out = tempfile.mkdtemp(prefix="dryrun_", dir=mods["tmp"])
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for arch, shape in DRYRUN_CELLS]
+    return out, procs
+
+
+def pod_kmeans(torch, mods, counters, card: str) -> tuple:
+    """(a) The reference's pod-scale cell, one K-Means step at n = 2^24,
+    d = 128, k = 4,096, through ``clustering_step_for_dryrun`` on meshes of
+    2 and 16 shards of the card, held to the plain step; and the kernels
+    line's row of pass 1 at a 2-shard shard.  Returns (launches, row)."""
+    dist, kmeans, synth, fops, dref = (mods["dist"], mods["kmeans"],
+                                       mods["synth"], mods["fops"],
+                                       mods["dref"])
+    n, d, k = POD["n"], POD["d"], POD["k"]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, _, _ = synth.make_blobs(gen, synth.ClusterSpec(d, k, n // k),
+                               device=DEV)
+    c = x[torch.randperm(n, generator=gen, device=DEV)[:k]].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"pod (a): {n} x {d} points of {k} blobs and {k} of them as "
+        f"centroids drawn on the card in {time.time() - t0:.2f} s")
+
+    # the main path: the step on 2 shards, then on 16 (the pod's data axis)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kmeans.KMeansConfig(k=k)
+    results, walls = {}, {}
+    reset(counters)
+    for p in POD_SHARDS:
+        step = dist.clustering_step_for_dryrun(
+            cfg, dist.Mesh((torch.device(DEV),) * p))
+        walls[p] = timed_wall(torch, lambda: results.__setitem__(p, step(x, c)))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    shards = sum(1 for p in POD_SHARDS
+                 for a, b in dist.kmeans_bounds(n, k, d, p) if b > a)
+    check(launches["fused_masked_assign_update"] == shards
+          and launches["reduce_partials"] == len(POD_SHARDS),
+          f"pod (a): launches {launches}, not {shards} pass-1 and "
+          f"{len(POD_SHARDS)} pass-2 launches")
+    a2, c2, shift2, inert2 = results[2]
+    check(all(bool(torch.equal(u, v)) for u, v in zip(results[2],
+                                                      results[16])),
+          "pod (a): the steps on 2 and 16 shards differ")
+    log(f"pod (a): step on 2 shards {walls[2]!r} s, on 16 shards "
+        f"{walls[16]!r} s (host wall to a synchronise; a mesh repeating "
+        f"the card runs its shards on side streams), launches {launches}, "
+        f"results bitwise equal, peak {peak / 1e9!r} GB; card {card}")
+
+    # row 2p: pass 1 over each 2-shard shard alone and pass 2, by events
+    rows = fops.block_rows(n, k, d)
+    mask = torch.ones(n, dtype=torch.bool, device=DEV)
+    bounds = dist.kmeans_bounds(n, k, d, 2)
+    parts, pass1 = [], []
+    for a, b in bounds:
+        ms, out = _event_ms(torch, lambda: fops.fused_masked_partials(
+            x[a:b], c, mask[a:b], rows))
+        pass1.append(ms)
+        parts.append(out)
+    part = torch.cat([pt for _, pt in parts])
+    pass2 = time_ms(torch, lambda: fops.reduce_partials(part, k, d), reps=5)
+    sums, counts, inertia = fops.reduce_partials(part, k, d)
+    c_new, _ = kmeans.update_from_partials(c, sums, counts)
+    check(bool(torch.equal(torch.cat([i for i, _ in parts]), a2))
+          and bool(torch.equal(c_new, c2)) and bool(torch.equal(inertia,
+                                                                inert2)),
+          "pod (a): the passes alone differ from the step's")
+    log(f"pod (a): pass 1 {pass1!r} ms a launch ({[b - a for a, b in bounds]}"
+        f" rows, {[-(-(b - a) // rows) for a, b in bounds]} blocks of "
+        f"{rows} rows), pass 2 {pass2!r} ms over {part.shape[0]} partials; "
+        f"card {card}")
+
+    # the plain step: the use_kernel=False branch on 16 shards
+    reset(counters)
+    plain = dist.clustering_step_for_dryrun(
+        kmeans.KMeansConfig(k=k, use_kernel=False),
+        dist.Mesh((torch.device(DEV),) * 16))
+    wall_plain = timed_wall(torch, lambda: results.__setitem__("plain",
+                                                               plain(x, c)))
+    _check_no_launch(counters, "pod (a) plain step")
+    pa, pc, pshift, pinert = results.pop("plain")
+    check(bool(torch.equal(a2, pa)),
+          f"pod (a): {int((a2 != pa).sum())} assignments differ from the "
+          f"plain step")
+    pcounts = torch.bincount(pa.long(), minlength=k).float()
+    check(bool(torch.equal(counts, pcounts)),
+          "pod (a): counts differ from the plain step's")
+    xmax = float(x.abs().max())
+    dc = float((c2 - pc).abs().max())
+    check(dc <= POD_TOL * xmax, f"pod (a): new centroids differ by {dc} "
+                                f"(largest |x| {xmax})")
+    for what, u, v in (("shift", shift2, pshift), ("inertia", inert2,
+                                                    pinert)):
+        rel = abs(float(u) - float(v)) / abs(float(v))
+        check(rel <= POD_TOL, f"pod (a): {what} {float(u)} vs plain "
+                              f"{float(v)} (rel {rel})")
+    log(f"pod (a): the plain step on 16 shards {wall_plain!r} s: "
+        f"assignments equal, counts exact, new centroids within {dc!r} "
+        f"(largest |x| {xmax!r}), shift {float(shift2)!r} vs "
+        f"{float(pshift)!r}, inertia {float(inert2)!r} vs {float(pinert)!r}")
+    del pa, pc, results
+    torch.cuda.empty_cache()
+
+    # the row's plain version and library call on the first 2-shard shard
+    a0, b0 = bounds[0]
+    n0 = b0 - a0
+    plain_ms, (ridx, rpart) = _event_ms(torch, lambda: (
+        dref.fused_masked_partials_ref(x[a0:b0], c, mask[a0:b0], rows)))
+    idx0, part0 = parts[0]
+    stride = k * d + k + 1
+    cnt, rcnt = part0[:, k * d:k * d + k], rpart[:, k * d:k * d + k]
+    dsums = (part0[:, :k * d] - rpart[:, :k * d]).abs().view(-1, k, d)
+    err = float(dsums.max())
+    check(bool(torch.equal(idx0, ridx)) and bool(torch.equal(cnt, rcnt))
+          and bool((dsums <= POD_TOL * rcnt[:, :, None] * xmax
+                    + 1e-6).all())
+          and bool(torch.allclose(part0[:, -1], rpart[:, -1], rtol=POD_TOL,
+                                  atol=0.0)),
+          f"pod (a): pass 1 over a 2-shard shard differs from the plain "
+          f"version (max |dsums| {err})")
+    del ridx, rpart, dsums
+
+    def composed():
+        # a yardstick of stock PyTorch calls, never called by the port
+        sums = torch.zeros((k, d), device=DEV)
+        cnts = torch.zeros(k, device=DEV)
+        cols = torch.arange(k, device=DEV)
+        for r in range(a0, b0, 1 << 18):
+            xc = x[r:min(b0, r + (1 << 18))]
+            oh = (torch.cdist(xc, c).argmin(1)[:, None] == cols).float()
+            sums += oh.T @ xc
+            cnts += oh.sum(0)
+        return sums, cnts
+
+    lib_ms, _ = _event_ms(torch, composed)
+    blocks0 = -(-n0 // rows)
+    moved = n0 * d * 4 + n0 + 4 * n0 + 4 * blocks0 * stride + 4 * k * d
+    b, by = bound(moved, 3 * 2.0 * n0 * k * d, PEAK_TF32)
+    log(f"pod (a) row 2p: pass 1 over {n0} rows ({blocks0} blocks) "
+        f"{pass1[0]!r} ms, bound {b!r} ms ({by}), plain {plain_ms!r} ms, "
+        f"library (cdist + one-hot, chunked) {lib_ms!r} ms; indices and "
+        f"counts equal to the plain version, max |dsums| {err!r}")
+
+    # the dry-run's inventory of the same step on a one-device mesh
+    rec = mods["dryrun_cluster"].kmeans_cell(
+        mods["AbstractMesh"](("data",), (1,)))
+    log(f"pod (a): dry-run on a one-device mesh: FLOPs "
+        f"{rec['cost_analysis']['flops']!r}, argument bytes "
+        f"{rec['memory_analysis']['argument_size_in_bytes']}, temps "
+        f"{rec['memory_analysis']['temp_size_in_bytes']}; the card's "
+        f"max_memory_allocated over the two steps {peak}; card {card}")
+    del x, c, mask, part, parts
+    torch.cuda.empty_cache()
+    row = dict(name="fused_masked_partials_pod", route="cuda",
+               source="src/repro_torch/csrc/fused.cu",
+               replaces="src/repro/kernels/distance/fused.py:42",
+               max_abs_err=err, ms=pass1[0], plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib_ms,
+               library_call="cdist(x, c).argmin(1) + one-hot matmul "
+                            "(composed, chunked)",
+               shape=f"pass 1 over a 2-shard shard: n={n0} of {n} d={d} "
+                     f"k={k}, {blocks0} blocks",
+               launch_shape=list(fops.launch_shape(n, k, d)),
+               device_ms=dict(pass1=pass1, pass2=pass2))
+    return launches, row
+
+
+def pipeline_path(torch, mods, counters, card: str) -> None:
+    """(b) GPipe on the card: OLMo-1B's 16 layers in 4 stages on a mesh
+    repeating the card, bf16, no_grad, against ``hidden_forward`` per
+    microbatch; then 4 one-layer stages in fp32 under autograd."""
+    configs, lm, pipe, dist, tstep = (mods["configs"], mods["lm"],
+                                      mods["pipeline"], mods["dist"],
+                                      mods["tstep"])
+    cfg = configs.get_config(PIPE["arch"])
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = lm.init_params(gen, cfg, device=DEV)
+    m, mb, s = PIPE["microbatches"], PIPE["batch"], PIPE["seq"]
+    tokens = torch.randint(0, cfg.vocab, (m, mb, s), generator=gen,
+                           device=DEV)
+    mesh = dist.Mesh((torch.device(DEV),) * PIPE["stages"], axis="pipe")
+    with torch.no_grad():
+        lm.hidden_forward(params, tokens[0], cfg)     # warm-up, untimed
+        reset(counters)
+        out = []
+        wall = timed_wall(torch, lambda: out.append(
+            pipe.pipelined_hidden_forward(mesh, params, tokens, cfg)))
+        by_route = dict(counters["flash_attention"].launches_by_route)
+        check(by_route == {"tc": cfg.n_layers * m, "simt": 0},
+              f"pipe (b): flash launches {by_route}, not "
+              f"{cfg.n_layers * m} on \"tc\"")
+        ref = []
+        wall_ref = timed_wall(torch, lambda: ref.extend(
+            lm.hidden_forward(params, tokens[i], cfg)[0] for i in range(m)))
+        check(all(bool(torch.equal(out[0][i], ref[i])) for i in range(m)),
+              "pipe (b): pipelined hidden states differ from hidden_forward")
+    log(f"pipe (b): {cfg.name} {cfg.n_layers} layers in {mesh.size} stages "
+        f"on the card, bf16, {m} microbatches of {mb} x {s}: pipelined "
+        f"{wall!r} s, per microbatch {wall_ref!r} s, hidden states bitwise "
+        f"equal, flash launches {by_route}; card {card}")
+    del params, out, ref
+    torch.cuda.empty_cache()
+
+    gcfg = dataclasses.replace(cfg, n_layers=PIPE_GRAD["layers"],
+                               dtype="float32")
+    params = tstep.as_trainable(lm.init_params(gen, gcfg, device=DEV))
+    toks = torch.randint(0, gcfg.vocab, (m, PIPE_GRAD["batch"],
+                                         PIPE_GRAD["seq"]), generator=gen,
+                         device=DEV)
+    leaves = mods["tree_leaves"](params)
+    grads = {}
+
+    def run(name, hidden):
+        loss = torch.mean(hidden() ** 2)
+        grads[name] = torch.autograd.grad(loss, leaves)
+
+    run("warm-up", lambda: lm.hidden_forward(params, toks[0], gcfg)[0])
+    wall_g = timed_wall(torch, lambda: run("pipe", lambda: (
+        pipe.pipelined_hidden_forward(mesh, params, toks, gcfg))))
+    wall_gr = timed_wall(torch, lambda: run("ref", lambda: torch.stack([
+        lm.hidden_forward(params, toks[i], gcfg)[0] for i in range(m)])))
+    worst = 0.0
+    for g, gr in zip(grads["pipe"], grads["ref"]):
+        top = float(gr.abs().max())
+        worst = max(worst, float((g - gr).abs().max()) / top)
+    check(worst <= PIPE_GRAD_TOL,
+          f"pipe (b): fp32 gradients differ by {worst} of the largest |g|")
+    log(f"pipe (b): {gcfg.n_layers} one-layer stages at {cfg.name} width, "
+        f"fp32, {m} x ({PIPE_GRAD['batch']} x {PIPE_GRAD['seq']}) under "
+        f"autograd: pipelined {wall_g!r} s, unpipelined {wall_gr!r} s, "
+        f"every gradient leaf within {worst!r} of its largest |g|")
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def dryrun_checks(torch, mods, train: dict, out_dir: str, procs,
+                  card: str) -> None:
+    """(c) The dry-run of phase 3d's OLMo-1B train cell on a one-device
+    mesh held to what 3d measured; then the five cells' records."""
+    cells, dryrun = mods["cells"], mods["dryrun"]
+    shape = mods["configs"].ShapeSpec("train_3d", TRAIN["seq"],
+                                      TRAIN["batch"], "train")
+    cell = cells.build_cell(TRAIN["arch"], shape,
+                            mods["AbstractMesh"](("data",), (1,)))
+    tr = cells.trace_cell(cell)
+    state = cells.tree_bytes(cell.args[:1], cell.specs[:1], cell.mesh)
+    full = train["full"]
+    st = cell.args[0]
+    sizes = [t.numel() * t.itemsize for t in mods["tree_leaves"](st.params)
+             + mods["tree_leaves"](st.opt) + [st.step]]
+    check(len(sizes) == full["state_tensors"],
+          f"dryrun (c): {len(sizes)} state tensors traced, "
+          f"{full['state_tensors']} on the card")
+    # the caching allocator rounds a block of up to 1 MiB to 512 bytes, and
+    # hands a larger one out whole when less than 1 MiB would remain
+    slack = sum(ALLOC_SMALL_ROUND if n <= ALLOC_SPLIT else ALLOC_SPLIT
+                for n in sizes)
+    check(0 <= full["state_alloc"] - state <= slack,
+          f"dryrun (c): the state's argument bytes {state} vs "
+          f"{full['state_alloc']} allocated on the card (rounding {slack})")
+    mem = (cells.argument_bytes(cell) + tr["temp_size_in_bytes"]) \
+        / full["peak"]
+    check(1 / DRYRUN_RATIO_LIMIT <= mem <= DRYRUN_RATIO_LIMIT,
+          f"dryrun (c): argument + temp bytes {mem} x phase 3d's peak")
+    log(f"dryrun (c): {TRAIN['arch']} train at {TRAIN['batch']} x "
+        f"{TRAIN['seq']}, full depth, one-device mesh (trace "
+        f"{tr['seconds']!r} s): state {state} B vs {full['state_alloc']} B "
+        f"allocated by phase 3d ({full['state_tensors']} tensors, the "
+        f"allocator's rounding at most {slack} B); "
+        f"argument + temp {cells.argument_bytes(cell)} + "
+        f"{tr['temp_size_in_bytes']} B = {mem!r} x 3d's peak "
+        f"{full['peak']} B; FLOPs {tr['flops']!r} = "
+        f"{tr['flops'] / full['flops']!r} x the smoke's train_flops "
+        f"{full['flops']!r}; card {card}")
+    for proc, (arch, shape_name) in zip(procs, DRYRUN_CELLS):
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        check(proc.returncode == 0, f"dryrun (c): {arch} x {shape_name} "
+                                    f"exited {proc.returncode}: {text[-2000:]}")
+        path = Path(out_dir) / dryrun.mesh_name(False) / \
+            f"{arch}__{shape_name}.json"
+        rec = json.loads(path.read_text())
+        ma = rec["memory_analysis"]
+        log(f"dryrun (c): {arch} {shape_name} on the single pod: argument "
+            f"{ma['argument_size_in_bytes'] / 1e9!r} GB a device, temp "
+            f"{ma['temp_size_in_bytes'] / 1e9!r} GB"
+            f"{' (upper bound)' if ma['temp_is_upper_bound'] else ''}, "
+            f"FLOPs {rec['cost_analysis']['flops']!r} (local batch "
+            f"{rec['local_batch']}), modelled wire "
+            f"{rec['collectives']['total_wire_bytes']!r} B, trace "
+            f"{rec['seconds_trace']!r} s")
+
+
+def pod_path(torch, mods, counters, card: str, train: dict) -> tuple:
+    """Phase 6: (c)'s dry-runs start on the host, (a) and (b) run on the
+    card meanwhile, then (c) reads them.  Every process it starts is
+    stopped before it returns."""
+    t0 = time.time()
+    out_dir, procs = start_dryruns(mods)
+    try:
+        launches, row = pod_kmeans(torch, mods, counters, card)
+        log(f"phase 6 (a): {time.time() - t0:.1f} s")
+        t1 = time.time()
+        pipeline_path(torch, mods, counters, card)
+        log(f"phase 6 (b): {time.time() - t1:.1f} s")
+        t1 = time.time()
+        dryrun_checks(torch, mods, train, out_dir, procs, card)
+        log(f"phase 6 (c): {time.time() - t1:.1f} s after (b)")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    log(f"phase 6: {time.time() - t0:.1f} s")
+    return launches, row
 
 
 def workdir(mods, prefix: str) -> str:
@@ -3158,6 +3563,10 @@ def main() -> int:
     from repro_torch.tree import tree_map
     from repro_torch.examples import (embedding_clustering, mine_cluster,
                                       quickstart, service_demo)
+    from repro_torch.launch import cells, dryrun, dryrun_cluster
+    from repro_torch.parallel import pipeline
+    from repro_torch.parallel.sharding import AbstractMesh
+    from repro_torch.tree import tree_leaves
 
     mods = dict(dops=dops, dref=dref, fops=fops, nops=nops, nref=nref,
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
@@ -3168,7 +3577,10 @@ def main() -> int:
                 launch_train=launch_train, store=store, tree_map=tree_map,
                 ex_quickstart=quickstart, ex_mine_cluster=mine_cluster,
                 ex_service_demo=service_demo,
-                ex_embedding=embedding_clustering)
+                ex_embedding=embedding_clustering, cells=cells,
+                dryrun=dryrun, dryrun_cluster=dryrun_cluster,
+                pipeline=pipeline, AbstractMesh=AbstractMesh,
+                tree_leaves=tree_leaves)
     counters = {"assign_clusters": dops.assign_clusters,
                 "fused_masked_assign_update": fops.fused_masked_assign_update,
                 "epsilon_degree": nops.epsilon_degree,
@@ -3242,6 +3654,9 @@ def main() -> int:
             log(f"standby + rolling restart path: {time.time() - t_path:.1f}"
                 f" s, promoted launches {standby['launches']}, successors' "
                 f"launches {roll['launches']}")
+            pod_launches, pod_row = pod_path(torch, mods, counters, card,
+                                             train)
+            rows.append(pod_row)
         except SmokeFailure as exc:
             print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
             return 1
@@ -3255,6 +3670,8 @@ def main() -> int:
                      if k.endswith("_cross")})
     launches["assign_clusters_d2048"] = ex_assign
     launches.update(fam_launches)
+    launches["fused_masked_partials_pod"] = pod_launches[
+        "fused_masked_assign_update"]
     ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -3275,6 +3692,10 @@ def main() -> int:
                             row["name"]),
                         "launches_lm_families_path": fam_launches.get(
                             row["name"]),
+                        "launches_pod_path": (
+                            pod_launches["fused_masked_assign_update"]
+                            if row["name"] == "fused_masked_partials_pod"
+                            else None),
                         "max_err": row["max_abs_err"],
                         "library_ms": row["library_ms"],
                         "library_call": row.get("library_call"),

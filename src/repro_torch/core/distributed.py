@@ -152,6 +152,35 @@ def kmeans_bounds(n: int, k: int, d: int,
     return list(zip(cut[:-1], cut[1:]))
 
 
+def _side_by_side(calls: Sequence[Callable[[], Tuple[torch.Tensor, ...]]],
+                  devices: Sequence[torch.device]) -> list:
+    """``calls[i]()`` for each shard, its kernels queued for
+    ``devices[i]``.  Where the mesh names one CUDA device more than once,
+    each of its shards runs on a side stream of its own, so the shards'
+    launches run side by side on the card as they would on distinct
+    cards; the device's current stream waits for them all before this
+    returns.  The results are the same bits in any order."""
+    repeated = {dev for dev in devices
+                if dev.type == "cuda" and list(devices).count(dev) > 1}
+    out, sides = [], []
+    for call, dev in zip(calls, devices):
+        if dev not in repeated:
+            out.append(call())
+            continue
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            res = call()
+        for t in res:
+            t.record_stream(main)   # freed only after main's use
+        out.append(res)
+        sides.append((main, side))
+    for main, side in sides:
+        main.wait_stream(side)
+    return out
+
+
 def make_sharded_masked_kmeans_step(mesh: Mesh, cfg: kmeans.KMeansConfig):
     """``step(xs, c, ms) -> (assign, c_new, shift, inertia)`` over a padded
     item: ``xs`` and the validity mask ``ms`` row-sharded (lists of shards
@@ -160,8 +189,10 @@ def make_sharded_masked_kmeans_step(mesh: Mesh, cfg: kmeans.KMeansConfig):
     on ``devices[0]``, as are the centroids, the shift and the inertia.
 
     Kernel configs run the fused step's two passes (bit for bit the one
-    launch's step); plain configs add the two-pass step's partial sums in
-    shard order."""
+    launch's step; on a mesh that repeats a card, the shards' pass-1
+    launches on side streams, side by side); plain configs add the
+    two-pass step's partial sums in shard order, one shard after
+    another."""
     dev0 = mesh.devices[0]
 
     def step(xs, c, ms):
@@ -178,8 +209,10 @@ def make_sharded_masked_kmeans_step(mesh: Mesh, cfg: kmeans.KMeansConfig):
                     raise ValueError(f"a shard starts at row {start}, not "
                                      f"at a block of {rows} rows")
                 start += x.shape[0]
-            parts = [fused.fused_masked_partials(x, c.to(x.device), m, rows)
-                     for x, m in zip(xs, ms)]
+            parts = _side_by_side(
+                [lambda x=x, m=m: fused.fused_masked_partials(
+                    x, c.to(x.device), m, rows) for x, m in zip(xs, ms)],
+                [x.device for x in xs])
             assign = gather(mesh, [a for a, _ in parts])
             sums, counts, inertia = fused.reduce_partials(
                 torch.cat([p.to(dev0) for _, p in parts]), cfg.k, d)
@@ -391,3 +424,32 @@ def sharded_dbscan_fit_resumable(
         deg, lambda frontier: gather(mesh, expand_fn(xs, frontier)), cfg,
         token, state=state, valid_mask=valid_mask, on_state=on_state,
         state_interval=state_interval)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run entry: one distributed K-Means step
+# ---------------------------------------------------------------------------
+
+
+def clustering_step_for_dryrun(cfg: kmeans.KMeansConfig,
+                               mesh: Optional[Mesh] = None):
+    """``step(x, c) -> (assign, c_new, shift, inertia)``: one K-Means step
+    over row-sharded points, the reference's dry-run function
+    (``repro/core/distributed.py:clustering_step_for_dryrun``).
+
+    It is :func:`make_sharded_kmeans_step` on ``mesh`` (by default the one
+    device x lives on): with ``cfg.use_kernel`` on a CUDA mesh the fused
+    step's two passes, bit for bit its one launch's result; on CPU tensors
+    the plain version; on the meta device (``launch/dryrun_cluster.py``)
+    the two passes' shape ops.  The shift is the sum of the centroids'
+    absolute displacements, the inertia the sum of the squared distances
+    (clamped at 0), as the reference's.  Unlike the reference, which
+    shards the (n, k) scores over the centroids too ('model'), each shard
+    holds every centroid.
+    """
+
+    def step(x, c):
+        m = mesh if mesh is not None else Mesh((x.device,))
+        return make_sharded_kmeans_step(m, cfg)(x, c)
+
+    return step

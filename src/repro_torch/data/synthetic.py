@@ -78,7 +78,9 @@ def make_blobs(
     sizes (paper: "allows to generate clusters with unequal cluster sizes").
     Single precision by default, as in the paper.  The numbers are drawn on
     the CPU from ``seed`` (so they do not depend on the device) and then
-    moved to ``device``.
+    moved to ``device``; a ``torch.Generator`` given as ``seed`` draws on
+    its own device (a card's generator draws there, other numbers than the
+    CPU's).
     """
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -91,16 +93,18 @@ def make_blobs(
         raise ValueError(f"sizes has {len(sizes)} entries for {c} clusters")
     n = int(sum(sizes))
 
-    centers = (torch.rand((c, f), generator=gen, dtype=dtype)
+    draw = gen.device
+    centers = (torch.rand((c, f), generator=gen, dtype=dtype, device=draw)
                * (2 * center_range) - center_range)
     # per-cluster, per-feature variances (paper: different variances per feature)
-    sigmas = (torch.rand((c, f), generator=gen, dtype=dtype)
+    sigmas = (torch.rand((c, f), generator=gen, dtype=dtype, device=draw)
               * (max_sigma - min_sigma) + min_sigma)
     labels = torch.repeat_interleave(
-        torch.arange(c, dtype=torch.int32), torch.as_tensor(list(sizes)))
-    noise = torch.randn((n, f), generator=gen, dtype=dtype)
+        torch.arange(c, dtype=torch.int32, device=draw),
+        torch.as_tensor(list(sizes), device=draw))
+    noise = torch.randn((n, f), generator=gen, dtype=dtype, device=draw)
     points = centers[labels] + noise * sigmas[labels]
 
-    perm = torch.randperm(n, generator=gen)
+    perm = torch.randperm(n, generator=gen, device=draw)
     return (points[perm].to(device), labels[perm].to(device),
             centers.to(device))

@@ -19,6 +19,11 @@ inputs that need a gradient (training attention is ``models.layers._sdpa``).
 count) and ``flash_attention.launches_by_route`` splits them by route, so a
 run can show which kernel its main path went through.
 
+A tensor on the meta device (the dry-run) takes the kernel's shape op
+(:mod:`repro_torch.kernels.shape_ops`): an empty output, no launch
+counted, and 4 D operations per (query, key) pair scored
+(:func:`flash_flops`) counted as its FLOPs.
+
 Unlike the reference's wrapper (``repro/kernels/attention/ops.py``), which
 repeats the KV heads, transposes to (B*H, S, D) and pads S to the block
 size, both kernels read q, k and v in their (B, S, heads, D) layout through
@@ -32,10 +37,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_ops
 from repro_torch.kernels.attention.ref import attention_ref
 
-__all__ = ["flash_attention", "attention_ref", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "attention_ref", "flash_flops", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -155,6 +160,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def scored_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a head scores: query i (from 0) sees keys 0..i
+    when causal."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)
+    return full * (full + 1) // 2 + (sq - full) * sk
+
+
+def flash_flops(q_shape, k_shape, causal: bool) -> int:
+    """The kernel's operations: q.k and p.v, 2 D each, per scored pair of
+    every (batch, query head)."""
+    b, sq, h, d = q_shape
+    return 4 * d * b * h * scored_pairs(sq, k_shape[1], causal)
+
+
+_shape_op = shape_ops.define(
+    "flash_attention_shape",
+    "(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    lambda q, k, v, causal: torch.empty_like(q),
+    lambda q, k, v, causal: flash_flops(q, k, causal))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward: softmax(q k^T / sqrt(D)) v per head.
@@ -185,6 +213,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _launch(q, k, v, causal, _route(q, k, v))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return _shape_op(q, k, v, causal)
     raise ValueError(f"unsupported device {q.device}")
 
 

@@ -25,6 +25,11 @@ partials, block for block, so the reduced sums are the one launch's bits
 whatever the number of shards.  A pass-1 launch adds one to
 ``fused_masked_assign_update.launches`` (it is the fused kernel);
 ``reduce_partials.launches`` counts pass 2 alone.
+
+On the meta device (the dry-run) the two passes take their shape ops
+(:mod:`repro_torch.kernels.shape_ops`): empty outputs, no launch counted,
+and the work counted as FLOPs: 2 n k d for the scores and n d for the
+sums (pass 1), an add per partial float (pass 2).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_ops
 from repro_torch.kernels.distance import ops
 from repro_torch.kernels.distance.ref import (
     fused_masked_assign_update_ref,
@@ -98,7 +103,7 @@ def _check_inputs(x: torch.Tensor, c: torch.Tensor,
     if x.shape[0] > MAX_ROWS:
         raise ValueError(f"n={x.shape[0]} rows: fp32 counts are exact only "
                          f"up to {MAX_ROWS}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -186,6 +191,25 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor,
     return idx, (part if out is None else out)
 
 
+def _partials_meta(x, c, mask, rows_per_block):
+    n, d = x.shape
+    k = c.shape[0]
+    return (x.new_empty((n,), dtype=torch.int32),
+            x.new_empty((-(-n // rows_per_block), k * d + k + 1)))
+
+
+_partials_shape = shape_ops.define(
+    "fused_partials_shape",
+    "(Tensor x, Tensor c, Tensor mask, int rows_per_block) "
+    "-> (Tensor, Tensor)",
+    _partials_meta,
+    lambda x, c, mask, rows: 2 * x[0] * c[0] * x[1] + x[0] * x[1])
+_reduce_shape = shape_ops.define(
+    "reduce_partials_shape", "(Tensor part, int k, int d) -> Tensor",
+    lambda part, k, d: part.new_empty((part.shape[1],)),
+    lambda part, k, d: part[0] * part[1])
+
+
 def _split(out: torch.Tensor, k: int, d: int):
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
 
@@ -226,6 +250,8 @@ def fused_masked_partials(
     f32 (blocks, k*d + k + 1), each [sums | counts | inertia] of a block's
     unmasked rows)."""
     _check_inputs(x, c, mask)
+    if x.device.type == "meta":
+        return _partials_shape(x, c, mask, rows_per_block)
     if not x.is_cuda:
         return fused_masked_partials_ref(x, c, mask, rows_per_block)
     n, d = x.shape
@@ -247,6 +273,8 @@ def reduce_partials(part: torch.Tensor, k: int, d: int):
                          f"{tuple(part.shape)}")
     if part.dtype != torch.float32 or not part.is_contiguous():
         raise ValueError("partials must be contiguous float32")
+    if part.device.type == "meta":
+        return _split(_reduce_shape(part, k, d), k, d)
     if not part.is_cuda:
         return reduce_partials_ref(part, k, d)
     out = torch.empty(stride, dtype=torch.float32, device=part.device)

@@ -4,8 +4,9 @@ Each parameter is declared once with (shape, logical axes, init), as in the
 reference (``repro/models/declare.py``).  From the same tree of
 declarations the port derives the initialised tensors
 (:func:`repro_torch.models.lm.init_params`), the decode cache and the
-logical-axes tree.  The abstract (shape-only) tree of the dry-run waits for
-ROADMAP.md queue 1 item 5.  A leaf may carry its own dtype (the Mamba
+logical-axes tree, and the abstract tree of the dry-run (:func:`abstract_tree`:
+tensors on the meta device, which hold a shape and a dtype and no
+storage).  A leaf may carry its own dtype (the Mamba
 mixer's ``a_log`` and ``dt_bias`` stay float32 in a bfloat16 model) and a
 ``custom`` init, as in the reference.
 
@@ -102,6 +103,13 @@ def _init_one(generator: torch.Generator, d: ParamDecl, dtype: torch.dtype,
 
 def axes_tree(decls: DeclTree) -> Dict[str, Any]:
     return tree_map(lambda d: d.axes, decls)
+
+
+def abstract_tree(decls: DeclTree, dtype: torch.dtype) -> Dict[str, Any]:
+    """Meta tensors of each leaf's shape and resolved dtype (its own, or
+    ``dtype``): the reference's ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.resolve_dtype(dtype),
+                                          device="meta"), decls)
 
 
 def stack_layers(decl: ParamDecl, n: int) -> ParamDecl:

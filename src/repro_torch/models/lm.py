@@ -18,6 +18,8 @@ Entry points:
 - :func:`prefill_step`  — forward over the prompt AND build the decode cache
 - :func:`decode_step`   — one-token step against the cache (in place)
 - :func:`init_params`   — synthetic weights from a ``torch.Generator``
+- :func:`abstract_params`, :func:`abstract_decode_cache` — the same trees
+  as meta tensors, for the dry-run (``launch/dryrun.py``)
 """
 
 from __future__ import annotations
@@ -98,6 +100,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     live on that device)."""
     return declare.init_tree(generator, model_decls(cfg), model_dtype(cfg),
                              device)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The params tree as meta tensors (shapes and dtypes, no storage)."""
+    return declare.abstract_tree(model_decls(cfg), model_dtype(cfg))
 
 
 def param_axes(cfg: ModelConfig) -> Dict:
@@ -293,6 +300,18 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
         lambda d: torch.zeros(d.shape, dtype=d.resolve_dtype(model_dtype(cfg)),
                               device=device),
         cache_decls(cfg, batch, max_seq))
+
+
+def abstract_decode_cache(cfg: ModelConfig, batch: int,
+                          max_seq: int) -> DecodeCache:
+    """:func:`init_decode_cache`'s tree as meta tensors: the ssm state
+    float32, the rest in the model dtype."""
+    return declare.abstract_tree(cache_decls(cfg, batch, max_seq),
+                                 model_dtype(cfg))
+
+
+def cache_axes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
+    return declare.axes_tree(cache_decls(cfg, batch, max_seq))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 from repro_torch.train.step import (
     TrainState,
+    abstract_train_state,
     init_train_state,
     loss_and_grads,
     loss_fn,
@@ -7,11 +8,13 @@ from repro_torch.train.step import (
     make_serve_step,
     make_train_batch,
     make_train_step,
+    train_batch_shapes,
     train_state_axes,
 )
 
 __all__ = [
     "TrainState",
+    "abstract_train_state",
     "init_train_state",
     "loss_and_grads",
     "loss_fn",
@@ -19,5 +22,6 @@ __all__ = [
     "make_serve_step",
     "make_train_batch",
     "make_train_step",
+    "train_batch_shapes",
     "train_state_axes",
 ]

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokens import synthetic_token_batch
 from repro_torch.models import lm
-from repro_torch.models.frontends import synthetic_prefix
+from repro_torch.models.frontends import prefix_embed_shape, synthetic_prefix
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -59,6 +59,20 @@ def init_train_state(seed: int, cfg: ModelConfig,
         opt=adamw_init(params),
         step=torch.zeros((), dtype=torch.int32, device=device),
         rng=_rng_state(seed + 1),
+    )
+
+
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """:func:`init_train_state`'s tree as meta tensors (the dry-run's
+    argument): params, fp32 mu / nu (and master for a bf16 model), count
+    and step.  ``rng`` is a CPU generator's state, as in the real state: a
+    host tensor of a few kilobytes, which a step reads and replaces."""
+    params = lm.abstract_params(cfg)
+    return TrainState(
+        params=params,
+        opt=adamw_init(params),
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        rng=_rng_state(0),
     )
 
 
@@ -197,6 +211,25 @@ def make_serve_step(cfg: ModelConfig):
         return lm.decode_step(params, cache, tokens, pos, cfg)
 
     return serve
+
+
+def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int
+                       ) -> Dict[str, torch.Tensor]:
+    """One training batch as meta tensors (:func:`make_train_batch`'s
+    shapes and dtypes): int64 tokens and labels of ``seq - cfg.prefix_len``
+    positions and, for a stub frontend, bfloat16 prefix embeddings."""
+    s_text = seq - cfg.prefix_len
+    shapes = {
+        "tokens": torch.empty((batch, s_text), dtype=torch.int64,
+                              device="meta"),
+        "labels": torch.empty((batch, s_text), dtype=torch.int64,
+                              device="meta"),
+    }
+    pe = prefix_embed_shape(cfg, batch)
+    if pe is not None:
+        shapes["prefix_embeds"] = torch.empty(pe, dtype=torch.bfloat16,
+                                              device="meta")
+    return shapes
 
 
 def make_train_batch(generator: torch.Generator, cfg: ModelConfig,

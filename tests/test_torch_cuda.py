@@ -947,3 +947,56 @@ def test_card_fleet_labels_equal_a_single_process_service(gen, tmp_path):
     finally:
         router.close()
         manager.stop()
+
+
+# -- the dry-run clustering step and the pipeline, on the card ----------------
+
+
+@pytest.mark.parametrize("shards", [2, 3, 8])
+def test_dryrun_clustering_step_kernel_route_equals_the_plain_route(gen,
+                                                                    shards):
+    from repro_torch.core.distributed import Mesh, clustering_step_for_dryrun
+    from repro_torch.core.kmeans import KMeansConfig
+
+    # d = 128 takes the wide search; k = 300 is more centroids than one
+    # range of sums holds (acc_k = 256), as at the pod-scale cell's k; the
+    # shards of the repeated card run on side streams
+    x = (torch.randn(40000, 128, generator=gen) * 3).cuda()
+    c = x[:300].clone()
+    mesh = Mesh((torch.device("cuda:0"),) * shards)
+    before = fops.fused_masked_assign_update.launches
+    a, cn, shift, inert = clustering_step_for_dryrun(
+        KMeansConfig(k=300), mesh)(x, c)
+    torch.cuda.synchronize()
+    assert fops.fused_masked_assign_update.launches > before
+    pa, pcn, pshift, pinert = clustering_step_for_dryrun(
+        KMeansConfig(k=300, use_kernel=False), mesh)(x, c)
+    assert torch.equal(a, pa)
+    torch.testing.assert_close(cn, pcn, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(inert, pinert, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(shift, pshift, rtol=1e-4, atol=1e-4)
+    # the shards' passes are the one launch's, bit for bit
+    idx, sums, counts, one = fops.fused_masked_assign_update(
+        x, c, torch.ones(x.shape[0], dtype=torch.bool, device="cuda"))
+    assert torch.equal(a, idx) and torch.equal(inert, one)
+
+
+def test_pipelined_hidden_forward_equals_the_unpipelined_one(gen):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.pipeline import pipelined_hidden_forward
+
+    cfg = get_smoke_config("olmo-1b")            # 2 layers
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (3, 2, 16), generator=gen).cuda()
+    mesh = Mesh((torch.device("cuda:0"),) * 2, axis="pipe")
+    with torch.no_grad():
+        before = aops.flash_attention.launches
+        out = pipelined_hidden_forward(mesh, params, tokens, cfg)
+        torch.cuda.synchronize()
+        assert aops.flash_attention.launches == before + 2 * 3
+        for i in range(3):
+            want, _ = lm.hidden_forward(params, tokens[i], cfg)
+            assert torch.equal(out[i], want)

@@ -3,9 +3,11 @@ CPU LM serving batch, the durable serving tier's modules (replication,
 the fleet and its worker entry point), the distributed lane (a ring
 degree on a mesh of two host shards, the elastic restore) and LM training
 (a two-step CPU training job; the optimizer, the token pipeline and the
-training examples), the four tour examples and the MoE, Mamba and
+training examples), the four tour examples, the MoE, Mamba and
 frontend modules (a hybrid jamba serving batch, a musicgen prefill with
-its prefix) in a fresh interpreter load neither jax nor anything of the
+its prefix) and the sharding layer, the pipeline and the dry-run tooling
+(a meta-device dry-run of a decode cell and of the pod-scale K-Means
+step) in a fresh interpreter load neither jax nor anything of the
 reference package."""
 
 import os
@@ -71,6 +73,20 @@ from repro_torch.launch.train import run_training_job
 out = run_training_job(arch="olmo-1b", smoke=True, steps=2, batch=2, seq=8,
                        workdir=tempfile.mkdtemp(), device="cpu")
 assert out["final_state"] == "SUCCEEDED", out
+import repro_torch.parallel.sharding, repro_torch.parallel.resolve
+import repro_torch.parallel.pipeline
+import repro_torch.launch.mesh, repro_torch.launch.hlo
+import repro_torch.launch.cells, repro_torch.launch.dryrun_cluster
+from repro_torch.launch import dryrun, dryrun_cluster
+from repro_torch.core.distributed import clustering_step_for_dryrun
+from repro_torch.models.declare import abstract_tree
+from repro_torch.models.lm import abstract_params, abstract_decode_cache, \
+    cache_axes
+from repro_torch.train.step import abstract_train_state, train_batch_shapes
+rec = dryrun.run_cell("falcon-mamba-7b", "long_500k", False)
+assert rec["status"] == "ok", rec
+rec = dryrun_cluster.kmeans_cell(repro_torch.launch.mesh.make_production_mesh())
+assert rec["cost_analysis"]["flops"] > 0, rec
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
