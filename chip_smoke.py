@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's mining, LM serving and LM training paths, the
-serving of every LM family, its tour examples, the pod-scale K-Means
-cell, the GPipe pipeline and the dry-run on one CUDA card and check them.
+serving and training of every LM family, its tour examples, the
+pod-scale K-Means cell, the GPipe pipeline and the dry-run on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -107,8 +108,9 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    at step 4; its losses agree with an uninterrupted run's within 1e-2
    relative.  Prints save and restore seconds and bytes written.  (c) The
    same 2-layer width in fp32 on the card and on the host, same params and
-   tokens: every gradient leaf within 1e-3 of its largest |g|; and a
-   prefill of (a)'s trained weights launches flash "tc" once a layer.
+   tokens: every gradient leaf within 1e-3 of its largest |g| and the
+   loss within 1e-4 relative; and a prefill of (a)'s trained weights
+   launches flash "tc" once a layer.
 3e. Slice 11's path, the MoE, Mamba, hybrid and stub-frontend families,
    run after phase 5: each of internvl2-26b, musicgen-medium,
    olmoe-1b-7b, phi3.5-moe-42b-a6.6b (24 of its 32 layers), falcon-mamba-7b
@@ -133,6 +135,41 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    fp32), the same weights and prompts: prefill logits within 1e-4 of the
    largest |logit|, greedy tokens equal, and every MoE layer's router ids
    and keep mask equal (a flip prints the nearest tie's gap).
+3f. Slice 13's path, the same six archs trained on the card, run after
+   3e, one arch's state freed before the next.  (a) 3d's training at
+   published width (bf16, fp32 master / mu / nu, remat "full", wsd, 4
+   steps at lr 1e-5, the MoE archs at 3e-6 (``FAMILY_LR``), on one fixed
+   batch, the stub frontends' prefix rows from ``make_train_batch``):
+   musicgen-medium at all 48 layers, 16 x 2048; olmoe-1b-7b at 7 of 16
+   layers (what 80 GB holds) and falcon-mamba-7b at 2 of 64 (a step at
+   20 layers takes 43 s), 8 x 2048; internvl2-26b at 4 of 48, 4 x 2048;
+   phi3.5-moe at 2 of 32, 8 x 2048; jamba at its smoke config (one
+   period, narrow widths, the published Mamba chunk), 8 x 2048.  Each logs its state
+   reckoned at 16 B a parameter, then losses (ce and the MoE aux apart),
+   the median step time of steps 2-4, tokens/s, MFU (6 x the active
+   parameters a token, attention only for attention layers; the Mamba
+   scan's element-wise work not counted), peak memory, each MoE layer's
+   drop share at capacity 1.25 over the batch, and a profiler window over
+   one more step (device only, as every window).  Every loss finite, step
+   4's below step 1's, no kernel launched in training.  (e) A prefill of the trained olmoe-1b-7b and
+   musicgen-medium weights (2 x 2048 positions, musicgen's 64 prefix rows
+   among them) launches flash "tc" once per attention layer, logits
+   finite.  (b) Each family at published width cut to one layer group
+   (jamba at its smoke config) and OLMo-1B at 3d's 2 layers, bf16, batch
+   2 x 2048: the step-1 loss and gradients computed twice are equal bit
+   for bit, every leaf finite and non-zero.  (c) The same cuts in fp32,
+   batch 2 x 256, card against host: every MoE call's router ids and keep
+   masks equal (a flip prints the nearest tie's gap), then every gradient
+   leaf within 1e-3 of its largest |g| and the loss within 1e-4 relative.
+   (d) ``run_training_job`` for olmoe-1b-7b and falcon-mamba-7b at their
+   smoke configs' widths (the machine takes 45 GiB of disk writes a run;
+   at published width the checkpoints alone were 50 GB), 2 x 256:
+   cancelled after step 2, SUSPENDED, the emergency checkpoint's restore
+   bit-equal, resumed by a second call to step 4, losses within 1e-2 of
+   the same steps run in one loop; save and restore seconds and bytes
+   printed; then each smoke config in bf16 after a step through the store
+   and ``restore_train_state`` on the card, bit-equal, falcon-mamba's
+   float32 ``a_log`` / ``dt_bias`` float32 in the params and masters.
 4. Checks small runs against the sequential DBSCAN oracle, that a
    cancelled job ends SUSPENDED, and (4b) that a service batch preempted
    mid-run on the card ends SUSPENDED and resumes in a fresh service to the
@@ -289,6 +326,12 @@ FLEET_LIVE_KMEANS = 2
 FLEET_LIVE_DBSCAN = 1
 FLEET_LIVE = dict(max_batch=4, max_wait_s=0.005)
 FLEET_ADMIT_ONLY = dict(max_batch=64, max_wait_s=3600.0)
+# How long a fleet worker may answer no heartbeat before it is killed.  At
+# 6 x the 0.25 s interval (1.5 s), both workers of the roll were killed
+# while they admitted ~124 MiB durable requests, live; these phases check
+# labels, not detection under load, and a killed worker is found by its
+# exit, not by this deadline.
+FLEET_MISS_DEADLINE = 30.0
 STANDBY_REQUESTS = 4
 ROLL_WORKERS = 2
 # The preemption phase: a K-Means batch that runs its full iteration count
@@ -376,6 +419,44 @@ TRAIN_CUT_LAYERS = 2
 TRAIN_RESUME_RTOL = 1e-2
 TRAIN_GRAD_CHECK = dict(batch=2, seq=256)
 TRAIN_GRAD_TOL = 1e-3
+# Phase 3f: the MoE, Mamba, hybrid and stub-frontend archs trained as 3d
+# trains OLMo-1B (bf16, fp32 master / mu / nu, remat "full", wsd, 4 steps
+# at TRAIN_LR on one fixed batch of seq TRAIN["seq"]): (arch, depth, batch),
+# depth None for every layer, "smoke" for the smoke config (jamba: one
+# period at narrow widths; one period at its published widths is 213 GB of
+# state).  The depths are what 80 GB holds: the state is 16 B a parameter,
+# and the meta-device trace of the step (launch/cells.py) puts argument +
+# temp bytes at 74.2 GB for olmoe at 8 layers, which 3d's card peak (1.125
+# x its trace) puts past 78 GB; at 7 layers the trace is 65.3 GB.
+# falcon-mamba is cut by time: at 20 layers (65.25 GB on the card) a step
+# took 42.8 s, the chunked doubling scan's element-wise passes under
+# autograd (PERF.md), so it trains at 3d's cut of 2 layers.
+FAMILY_TRAIN = [("musicgen-medium", None, 16), ("olmoe-1b-7b", 7, 8),
+                ("falcon-mamba-7b", 2, 8), ("internvl2-26b", 4, 4),
+                ("phi3.5-moe-42b-a6.6b", 2, 8), ("jamba-v0.1-52b", "smoke", 8)]
+# The MoE archs' loss rose from step 3 to 4 at 1e-5 (olmoe at 7 layers
+# 11.4177, 11.4177, 11.0473, 12.2932; phi3.5-moe at 2 layers 10.9196,
+# 10.9196, 10.5100, 11.5391) and at 3e-5; at 3e-6 it falls every step
+# (11.4177, 11.4177, 11.3871, 11.2977; 10.9196, 10.9196, 10.8860, 10.7865),
+# and at 1e-6 and 3e-7 by less (scripts/train_lr_sweep.py --arch; PERF.md).
+# The others fall at TRAIN_LR.
+FAMILY_LR = {"olmoe-1b-7b": 3e-6, "phi3.5-moe-42b-a6.6b": 3e-6}
+# (e): the archs whose trained weights are prefilled (2 x TRAIN["seq"])
+FAMILY_SERVE = ("olmoe-1b-7b", "musicgen-medium")
+# (b): the step-1 gradients twice, each family at one layer group (jamba at
+# its smoke config), and OLMo-1B at 3d's cut, bf16
+TRAIN_BITS = dict(batch=2, seq=2048)
+# (d): run_training_job at the smoke configs' widths.  The machine that
+# runs the smoke takes 45 GiB of disk writes a run: at published width, 2
+# layers, the two lifecycles' checkpoints were 50 GB (14.6 + 14.6 GB for
+# olmoe, 10.4 + 10.4 for falcon-mamba; one checkpoint per layer was 8.8-
+# 8.9 GB), and a run was ended at 47.6 GiB (PERF.md).  The smoke configs
+# train in fp32, so a bf16 state of each is also saved and restored
+# (train_restore_mixed).
+FAMILY_LIFECYCLE = ("olmoe-1b-7b", "falcon-mamba-7b")
+FAMILY_LIFECYCLE_JOB = dict(smoke=True, layers=None, batch=2, seq=256)
+# the Mamba mixer's leaves that no matrix product reads (not in MFU's N)
+MAMBA_ELEMENTWISE = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip")
 # The examples phase (5): embedding clustering at OLMo-1B's published width
 # and depth, 1,024 documents of 128 tokens (the forward's fp32 logits are
 # 131,072 x 50,304 x 4 B = 26.4 GB), k = 4 with k-means++ seeding; the
@@ -1322,12 +1403,31 @@ def lm_serving_path(torch, mods, counters) -> dict:
     return {"flash_attention": launches["flash_attention"]}
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """FLOPs of one training step: 6 N per token, plus attention's
-    12 L B S^2 H D (QK^T and PV, forward and backward; causal masking not
-    subtracted); the remat forward is not counted."""
-    attn = 12 * cfg.n_layers * batch * seq ** 2 * cfg.n_heads * cfg.d_head
-    return 6.0 * n_params * batch * seq + attn
+def active_params(cfg, params) -> int:
+    """Parameters a token's matrix products use: every leaf, but of each
+    MoE layer's expert stacks the router's top_k of n_experts (the router
+    counts whole), and none of the Mamba mixer's element-wise leaves (the
+    conv taps and bias, dt_bias, a_log, D).  A dense arch counts every
+    leaf."""
+    n = 0
+    for name, p in _named_leaves(params):
+        parent, _, leaf = name.rpartition(".")
+        part = parent.rpartition(".")[2]
+        if part == "moe" and leaf != "router":
+            n += p.numel() * cfg.top_k // cfg.n_experts
+        elif part != "mamba" or leaf not in MAMBA_ELEMENTWISE:
+            n += p.numel()
+    return n
+
+
+def train_flops(cfg, n_active: int, batch: int, seq: int) -> float:
+    """FLOPs of one training step: 6 N per token over the active
+    parameters (:func:`active_params`), plus attention's 12 L B S^2 H D
+    over the L attention layers (QK^T and PV, forward and backward; causal
+    masking not subtracted); the remat forward, the MoE dispatch and the
+    Mamba scan's element-wise work are not counted."""
+    attn = 12 * _n_attn(cfg) * batch * seq ** 2 * cfg.n_heads * cfg.d_head
+    return 6.0 * n_active * batch * seq + attn
 
 
 def _named_leaves(tree, prefix=""):
@@ -1344,15 +1444,29 @@ def _check_no_launch(counters, what: str) -> None:
     check(not launched, f"{what}: a kernel launched: {launched}")
 
 
-def train_full(torch, mods, counters, card: str) -> dict:
-    """(a) OLMo-1B at full width and depth: 4 train steps on one fixed
-    batch, the step-1 gradients, then a prefill of the trained weights."""
-    tstep, configs, optim = mods["tstep"], mods["configs"], mods["optim"]
-    cfg = configs.get_config(TRAIN["arch"])
-    b, s = TRAIN["batch"], TRAIN["seq"]
+def _train_drop_shares(torch, mods, params, batch, cfg) -> list:
+    """Each MoE layer's share of router choices dropped at capacity over
+    the training batch: one forward without autograd (which takes flash)."""
+    calls = []
+    with recording_moe(mods, calls), torch.no_grad():
+        mods["lm"].hidden_forward(params, batch["tokens"], cfg,
+                                  batch.get("prefix_embeds"))
+    return [1.0 - float(keep.sum()) / keep.numel()
+            for _ids, keep, _no_drop, _gap in calls]
+
+
+def train_full(torch, mods, counters, card: str, cfg, b: int, s: int,
+               what: str, lr: float = TRAIN_LR, prefill_len: int = 0,
+               grad_check: bool = False) -> dict:
+    """4 train steps at peak rate ``lr`` on one fixed batch of ``b`` x
+    ``s`` tokens, the bf16 state of ``cfg`` (``grad_check``: the step-1
+    gradients first, every leaf finite and non-zero) and a profiler
+    window over one more; then a prefill of the trained weights, 2 rows
+    of ``prefill_len`` positions (none at 0) with a stub frontend's prefix
+    rows in front."""
+    tstep, optim = mods["tstep"], mods["optim"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset(counters)
     t0 = time.time()
     before = torch.cuda.memory_allocated()
     state = tstep.init_train_state(SEED, cfg, device=DEV)
@@ -1361,71 +1475,90 @@ def train_full(torch, mods, counters, card: str) -> dict:
     state_tensors = len(mods["tree_leaves"](state.params)
                         + mods["tree_leaves"](state.opt)) + 1   # + step
     n_params = sum(p.numel() for _n, p in _named_leaves(state.params))
+    n_active = active_params(cfg, state.params)
     batch = tstep.make_train_batch(
         torch.Generator(device=DEV).manual_seed(SEED), cfg, b, s)
     torch.cuda.synchronize()
-    log(f"train (a): state init {time.time() - t0:.3f} s, {n_params} "
-        f"params, state {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    log(f"{what}: state init {time.time() - t0:.3f} s, {n_params} params "
+        f"({n_active} active), state {state_alloc / 1e9:.2f} GB on the card "
+        f"(reckoned at 16 B a parameter: {16 * n_params / 1e9:.2f} GB)")
 
-    # the step-1 gradients: every leaf finite and non-zero
-    _loss, _parts, grads = tstep.loss_and_grads(state.params, batch, cfg)
-    bad = [name for name, g in _named_leaves(grads)
-           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
-    check(not bad, f"train (a): step-1 gradient zero or not finite in {bad}")
-    log(f"train (a): step-1 gradients of all "
-        f"{len(list(_named_leaves(grads)))} leaves finite and non-zero")
-    del grads, _loss, _parts
-
-    step = tstep.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+    if grad_check:
+        # the step-1 gradients: every leaf finite and non-zero
+        _loss, _parts, grads = tstep.loss_and_grads(state.params, batch, cfg)
+        bad = [name for name, g in _named_leaves(grads)
+               if not (bool(torch.isfinite(g).all())
+                       and float(g.abs().max()) > 0)]
+        check(not bad, f"{what}: step-1 gradient zero or not finite in "
+                       f"{bad}")
+        log(f"{what}: step-1 gradients of all "
+            f"{len(list(_named_leaves(grads)))} leaves finite and non-zero")
+        del grads, _loss, _parts
+    drops = _train_drop_shares(torch, mods, state.params, batch, cfg) \
+        if cfg.n_experts else []
+    reset(counters)
+    step = tstep.make_train_step(cfg, optim.AdamWConfig(lr=lr),
                                  optim.make_schedule("wsd", TRAIN["steps"]))
-    losses, times = [], []
+    losses, parts, times = [], [], []
     for _ in range(TRAIN["steps"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))   # waits for the step
         times.append(time.perf_counter() - t0)
+        parts.append((float(metrics["ce"]), float(metrics["aux"])))
     check(all(math.isfinite(x) for x in losses),
-          f"train (a): a loss is not finite: {losses}")
+          f"{what}: a loss is not finite: {losses}")
     check(losses[-1] < losses[0],
-          f"train (a): the loss did not fall from step 1 to step "
+          f"{what}: the loss did not fall from step 1 to step "
           f"{TRAIN['steps']}: {losses}")
     launches = {name: fn.launches for name, fn in counters.items()}
-    _check_no_launch(counters, "train (a)")
+    _check_no_launch(counters, what)
     med = statistics.median(times[1:])
-    flops = train_flops(cfg, n_params, b, s)
+    flops = train_flops(cfg, n_active, b, s)
     peak = torch.cuda.max_memory_allocated()
     out = dict(step_s=med, tokens_per_s=b * s / med, flops=flops,
                mfu=flops / med / PEAK_BF16, peak_gb=peak / 1e9, peak=peak,
                state_alloc=state_alloc, state_tensors=state_tensors,
-               losses=losses, times=times, launches=launches)
-    log(f"train (a) {TRAIN['arch']} full width and depth ({cfg.n_layers} "
-        f"layers, bf16, fp32 master/mu/nu, remat {cfg.remat}, wsd, batch "
-        f"{b} x seq {s}): losses {losses!r}, step times {times!r} s, median "
-        f"of steps 2-{TRAIN['steps']} {med!r} s, tokens/s "
+               losses=losses, parts=parts, times=times, drops=drops,
+               launches=launches, params=n_params, active=n_active)
+    log(f"{what} {cfg.name} ({cfg.n_layers} layers, bf16, fp32 master/mu/"
+        f"nu, remat {cfg.remat}, wsd, lr {lr}, batch {b} x seq {s}): "
+        f"losses {losses!r} ((ce, aux) {parts!r}), step times {times!r} s, "
+        f"median of steps 2-{TRAIN['steps']} {med!r} s, tokens/s "
         f"{out['tokens_per_s']!r}, MFU {out['mfu']!r} of {PEAK_BF16:.4g} "
-        f"FLOP/s dense bf16 (step FLOPs {flops!r} = 6 N tokens "
-        f"{6.0 * n_params * b * s!r} + attention "
-        f"{flops - 6.0 * n_params * b * s!r}; remat not counted), peak "
+        f"FLOP/s dense bf16 (step FLOPs {flops!r} = 6 N_active tokens "
+        f"{6.0 * n_active * b * s!r} + attention "
+        f"{flops - 6.0 * n_active * b * s!r}; remat not counted), peak "
         f"memory {out['peak_gb']!r} GB, flash launches "
-        f"{counters['flash_attention'].launches}; card {card}")
-    profile_window(torch, "train step (one more step, batch "
-                   f"{b} x seq {s})", lambda: step(state, batch), top=14)
-    _check_no_launch(counters, "train (a) profiled step")
+        f"{counters['flash_attention'].launches}"
+        + (f", MoE drop share a layer at capacity {cfg.capacity_factor} "
+           f"{drops!r}" if drops else "") + f"; card {card}")
+    out["profile"] = profile_window(
+        torch, f"{what} {cfg.name} step (one more step, batch {b} x seq "
+               f"{s})", lambda: step(state, batch), top=14)
+    _check_no_launch(counters, f"{what} profiled step")
 
-    # (c), second part: a prefill of the trained weights runs flash "tc"
-    reset(counters)
-    logits, _cache = tstep.make_prefill_step(cfg)(
-        state.params, {"tokens": batch["tokens"][:2, :1024]})
-    by_route = dict(counters["flash_attention"].launches_by_route)
-    check(by_route == {"tc": cfg.n_layers, "simt": 0},
-          f"train (c): prefill of the trained weights launched flash "
-          f"{by_route}, not {cfg.n_layers} times on \"tc\"")
-    check(bool(torch.isfinite(logits).all()) and not logits.requires_grad,
-          "train (c): prefill logits of the trained weights")
-    log(f"train (c): prefill of the trained weights (batch 2, prompt 1024): "
-        f"flash launches by route {by_route}, logits finite")
-    del state, batch, logits, _cache
+    if prefill_len:
+        # a prefill of the trained weights runs flash "tc"
+        reset(counters)
+        logits, _cache = tstep.make_prefill_step(cfg)(
+            state.params, {k: v[:2, :prefill_len - cfg.prefix_len]
+                           if k == "tokens" else v[:2]
+                           for k, v in batch.items() if k != "labels"})
+        by_route = dict(counters["flash_attention"].launches_by_route)
+        want = _n_attn(cfg)
+        check(by_route == {"tc": want, "simt": 0},
+              f"{what}: prefill of the trained weights launched flash "
+              f"{by_route}, not {want} times on \"tc\"")
+        check(bool(torch.isfinite(logits).all()) and not logits.requires_grad,
+              f"{what}: prefill logits of the trained weights")
+        out["prefill_flash"] = want
+        log(f"{what}: prefill of the trained {cfg.name} weights (batch 2, "
+            f"{prefill_len} positions, {cfg.prefix_len} of them prefix "
+            f"rows): flash launches by route {by_route}, logits finite")
+        del logits, _cache
+    del state, batch
     torch.cuda.empty_cache()
     return out
 
@@ -1435,15 +1568,62 @@ def _ckpt_bytes(path: str) -> int:
                for f in os.listdir(path))
 
 
-def train_lifecycle(torch, mods, counters, card: str) -> dict:
-    """(b) run_training_job at full width, 2 layers: cancelled after step
-    2 (by step count), SUSPENDED with an emergency checkpoint; a second
-    call resumes it to step 4; an uninterrupted run beside it."""
+def _uninterrupted_losses(torch, mods, job: dict) -> list:
+    """The losses of ``job`` run as ``run_training_job`` runs it (its seed,
+    state and batch stream, one step after another) in one loop, with no
+    job store and no checkpoint."""
+    lt, tstep, optim = mods["launch_train"], mods["tstep"], mods["optim"]
+    configs = mods["configs"]
+    cfg = (configs.get_smoke_config if job["smoke"] else
+           configs.get_config)(job["arch"])
+    if job["layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=job["layers"])
+    seed = lt.stable_seed(job["arch"])
+    state = tstep.init_train_state(seed, cfg, device=DEV)
+    step = tstep.make_train_step(cfg, optim.AdamWConfig(lr=job["lr"]),
+                                 optim.make_schedule("wsd", job["steps"]))
+    losses = []
+    for i in range(job["steps"]):
+        batch = tstep.make_train_batch(lt.step_generator(seed, i, DEV), cfg,
+                                       job["batch"], job["seq"])
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    del state
+    return losses
+
+
+def _check_restored(torch, saved_state, back, what: str) -> int:
+    """Every leaf of the restored TrainState ``back`` equal bit for bit to
+    ``saved_state``'s, of its dtype and device; the leaves kept float32 in
+    a bf16 model (the Mamba mixer's a_log and dt_bias) float32 in the
+    master copy too.  Returns how many such leaves the params hold."""
+    saved = dict(_named_leaves(saved_state._asdict()))
+    restored = dict(_named_leaves(back._asdict()))
+    check(saved.keys() == restored.keys() and all(
+        saved[k].dtype == restored[k].dtype and saved[k].device
+        == restored[k].device and torch.equal(saved[k].detach(),
+                                              restored[k].detach())
+        for k in saved), f"{what}: the restored state differs from the "
+                         f"saved one")
+    masters = {k[len("opt.master."):]: v for k, v in restored.items()
+               if k.startswith("opt.master.")}
+    f32 = [k for k, v in restored.items() if masters
+           and k.startswith("params.") and v.dtype == torch.float32]
+    check(all(masters[k[len("params."):]].dtype == torch.float32
+              for k in f32),
+          f"{what}: a float32 leaf's master copy is not float32")
+    return len(f32)
+
+
+def train_lifecycle(torch, mods, counters, card: str, job: dict,
+                    ckpt_every: int, what: str) -> dict:
+    """run_training_job of ``job`` (arch, smoke, layers, batch, seq, lr):
+    cancelled after step 2 (by step count), SUSPENDED with an emergency
+    checkpoint whose restore is bit-equal; a second call resumes it to
+    step 4; the same steps uninterrupted beside it."""
     lt, cancel, store_mod = mods["launch_train"], mods["cancel"], mods["store"]
     steps, half = TRAIN["steps"], TRAIN["steps"] // 2
-    job = dict(arch=TRAIN["arch"], smoke=False, steps=steps,
-               batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN_LR,
-               layers=TRAIN_CUT_LAYERS, device=DEV)
+    job = dict(job, steps=steps, device=DEV)
     reset(counters)
     work = workdir(mods, "train_")
     tok = cancel.CancellationToken()
@@ -1453,112 +1633,211 @@ def train_lifecycle(torch, mods, counters, card: str) -> dict:
             tok.cancel(cancel.CancelReason.PREEMPTION)
 
     t0 = time.time()
-    out1 = lt.run_training_job(workdir=work, ckpt_every=half, token=tok,
-                               on_step=preempt, **job)
+    out1 = lt.run_training_job(workdir=work, ckpt_every=ckpt_every,
+                               token=tok, on_step=preempt, **job)
     wall1 = time.time() - t0
     check(out1["final_state"] == "SUSPENDED" and out1["steps_done"] == half,
-          f"train (b): first call ended {out1['final_state']} at step "
+          f"{what}: first call ended {out1['final_state']} at step "
           f"{out1['steps_done']}")
     store = store_mod.CheckpointStore(os.path.join(work, "ckpt"))
     check(store.latest_step() == half
           and store.manifest(half)["metadata"].get("emergency"),
-          f"train (b): no emergency checkpoint at step {half}")
+          f"{what}: no emergency checkpoint at step {half}")
     ckpt_bytes = _ckpt_bytes(os.path.join(store.root, f"step_{half}"))
     t0 = time.time()
     back = lt.restore_train_state(store, half, out1["state"])
     torch.cuda.synchronize()
     restore_s = time.time() - t0
-    saved = dict(_named_leaves(out1["state"]._asdict()))
-    restored = dict(_named_leaves(back._asdict()))
-    check(saved.keys() == restored.keys() and all(
-        saved[k].dtype == restored[k].dtype and saved[k].device
-        == restored[k].device and torch.equal(saved[k].detach(),
-                                              restored[k].detach())
-        for k in saved), "train (b): the restored state differs from the "
-                         "saved one")
-    del out1["state"], back, saved, restored
+    _check_restored(torch, out1["state"], back, what)
+    del out1["state"], back
 
     t0 = time.time()
-    out2 = lt.run_training_job(workdir=work, ckpt_every=half, **job)
+    out2 = lt.run_training_job(workdir=work, ckpt_every=ckpt_every, **job)
     wall2 = time.time() - t0
     check(out2["final_state"] == "SUCCEEDED" and out2["steps_done"] == steps
           and out2["job_id"] == out1["job_id"] and "restore_s" in out2,
-          f"train (b): the resume ended {out2['final_state']} at step "
+          f"{what}: the resume ended {out2['final_state']} at step "
           f"{out2['steps_done']} (job {out2['job_id']}, suspended job "
           f"{out1['job_id']})")
     del out2["state"]
     shutil.rmtree(work, ignore_errors=True)
-    work = workdir(mods, "train_ref_")
-    ref = lt.run_training_job(workdir=work, ckpt_every=steps, **job)
-    del ref["state"]
-    shutil.rmtree(work, ignore_errors=True)
+    ref = _uninterrupted_losses(torch, mods, job)
     got = out1["losses"] + out2["losses"]
-    rel = max(abs(a - r) / abs(r) for a, r in zip(got, ref["losses"]))
-    check(len(got) == len(ref["losses"]) and rel <= TRAIN_RESUME_RTOL,
-          f"train (b): suspended + resumed losses {got} vs uninterrupted "
-          f"{ref['losses']} (rel {rel}, limit {TRAIN_RESUME_RTOL})")
-    _check_no_launch(counters, "train (b)")
+    rel = max(abs(a - r) / abs(r) for a, r in zip(got, ref))
+    check(len(got) == len(ref) and rel <= TRAIN_RESUME_RTOL,
+          f"{what}: suspended + resumed losses {got} vs uninterrupted "
+          f"{ref} (rel {rel}, limit {TRAIN_RESUME_RTOL})")
+    _check_no_launch(counters, what)
     torch.cuda.empty_cache()
-    log(f"train (b) lifecycle ({TRAIN['arch']} full width, "
-        f"{TRAIN_CUT_LAYERS} layers, batch {TRAIN['batch']} x seq "
-        f"{TRAIN['seq']}): suspended at step {half} ({wall1:.3f} s), "
-        f"emergency save {out1['save_s']!r} s for {ckpt_bytes} bytes, "
-        f"restore {restore_s!r} s (bit-equal, generator included), resume "
-        f"to step {steps} {wall2:.3f} s (its restore {out2['restore_s']!r} "
-        f"s); losses {got!r} vs uninterrupted {ref['losses']!r} (max rel "
-        f"{rel!r}); card {card}")
+    log(f"{what} lifecycle ({job['arch']}, "
+        f"{'smoke widths' if job['smoke'] else 'full width'}, "
+        f"{job['layers'] or 'all'} layers, batch {job['batch']} x seq "
+        f"{job['seq']}): suspended at step {half} "
+        f"({wall1:.3f} s), emergency save {out1['save_s']!r} s for "
+        f"{ckpt_bytes} bytes, restore {restore_s!r} s (bit-equal, generator "
+        f"included), resume to step {steps} {wall2:.3f} s (its restore "
+        f"{out2['restore_s']!r} s); losses {got!r} vs uninterrupted "
+        f"{ref!r} (max rel {rel!r}); card {card}")
     return dict(save_s=out1["save_s"], restore_s=restore_s,
-                ckpt_bytes=ckpt_bytes)
+                ckpt_bytes=ckpt_bytes, rel=rel)
 
 
-def train_grad_check(torch, mods, counters) -> dict:
-    """(c) gradients of a 2-layer OLMo-1B-width model in fp32, card against
-    host, on the same params and tokens."""
-    tstep, lm, configs = mods["tstep"], mods["lm"], mods["configs"]
+def train_restore_mixed(torch, mods, arch: str, what: str) -> int:
+    """``arch``'s smoke config in bf16, one train step, then the state
+    through the checkpoint store and ``restore_train_state`` on the card:
+    bit-equal, the float32 leaves float32 in the params and the master."""
+    tstep, optim, lt = mods["tstep"], mods["optim"], mods["launch_train"]
+    cfg = dataclasses.replace(mods["configs"].get_smoke_config(arch),
+                              dtype="bfloat16")
+    state = tstep.init_train_state(SEED, cfg, device=DEV)
+    batch = tstep.make_train_batch(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg,
+        FAMILY_LIFECYCLE_JOB["batch"], FAMILY_LIFECYCLE_JOB["seq"])
+    state, _ = tstep.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR))(
+        state, batch)
+    store = mods["store"].CheckpointStore(workdir(mods, "mixed_"))
+    store.save(1, state)
+    back = lt.restore_train_state(
+        store, 1, tstep.init_train_state(SEED + 1, cfg, device=DEV))
+    n = _check_restored(torch, state, back, f"{what} bf16")
+    check(n > 0 or cfg.family not in ("ssm", "hybrid"),
+          f"{what} bf16: no float32 leaf in the restored params")
+    shutil.rmtree(store.root, ignore_errors=True)
+    log(f"{what}: {cfg.name} in bf16 after a step, saved and restored on "
+        f"the card bit-equal; {n} float32 leaves in the bf16 params, their "
+        f"masters float32")
+    return n
+
+
+def _compare_routing(card_calls, host_calls, what: str) -> None:
+    """Every MoE call's router ids and keep mask equal, card against host;
+    a flip prints the nearest top-k tie of that input on the host."""
+    check(len(card_calls) == len(host_calls),
+          f"{what}: {len(card_calls)} MoE calls on the card, "
+          f"{len(host_calls)} on the host")
+    for i, ((ci, ck, _nd, _cg), (hi, hk, _hnd, hgap)) in enumerate(
+            zip(card_calls, host_calls)):
+        flips = int((ci.cpu() != hi).sum())
+        check(flips == 0,
+              f"{what}: MoE call {i}: router ids differ at {flips} choices; "
+              f"the nearest top-k tie of that input is {hgap!r} apart on "
+              f"the host")
+        check(bool(ck.cpu().equal(hk)),
+              f"{what}: MoE call {i}: keep masks differ")
+
+
+def train_grad_check(torch, mods, counters, cfg, what: str) -> dict:
+    """Gradients of ``cfg`` in fp32, card against host, on the same params
+    and tokens: every MoE call's routing equal, then every gradient leaf
+    within TRAIN_GRAD_TOL of its largest |g| and the loss within
+    SERVE_LOGIT_RTOL relative."""
+    tstep, lm = mods["tstep"], mods["lm"]
     tree_map = mods["tree_map"]
-    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
-                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
     c = TRAIN_GRAD_CHECK
-    host = tstep.as_trainable(lm.init_params(
-        torch.Generator().manual_seed(SEED), cfg, device="cpu"))
-    card_params = tstep.as_trainable(
-        tree_map(lambda p: p.detach().to(DEV), host))
+    # drawn on the card (a host draw of a full-width layer takes seconds)
+    card_params = tstep.as_trainable(lm.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg, device=DEV))
+    host = tstep.as_trainable(tree_map(lambda p: p.detach().cpu(),
+                                       card_params))
+    # c["seq"] text tokens after a stub frontend's prefix rows
     batch = tstep.make_train_batch(torch.Generator().manual_seed(SEED + 1),
-                                   cfg, c["batch"], c["seq"])
+                                   cfg, c["batch"], c["seq"] + cfg.prefix_len)
     reset(counters)
+    card_calls, host_calls = [], []
     t0 = time.time()
-    loss_c, _, g_c = tstep.loss_and_grads(
-        card_params, {k: v.to(DEV) for k, v in batch.items()}, cfg)
+    with recording_moe(mods, card_calls):
+        loss_c, _, g_c = tstep.loss_and_grads(
+            card_params, {k: v.to(DEV) for k, v in batch.items()}, cfg)
     torch.cuda.synchronize()
     card_s = time.time() - t0
     t0 = time.time()
-    loss_h, _, g_h = tstep.loss_and_grads(host, batch, cfg)
+    with recording_moe(mods, host_calls):
+        loss_h, _, g_h = tstep.loss_and_grads(host, batch, cfg)
     host_s = time.time() - t0
-    _check_no_launch(counters, "train (c)")
+    _check_no_launch(counters, what)
+    _compare_routing(card_calls, host_calls, what)
     worst = {}
     for (name, a), (_n, b) in zip(_named_leaves(g_c), _named_leaves(g_h)):
         scale = float(b.abs().max())
         err = float((a.cpu() - b).abs().max())
         check(scale > 0 and err <= TRAIN_GRAD_TOL * scale,
-              f"train (c): gradient of {name} differs by {err} on the card "
+              f"{what}: gradient of {name} differs by {err} on the card "
               f"(largest |g| {scale}, limit {TRAIN_GRAD_TOL} of it)")
         worst[name] = err / scale
     loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
     rel = abs(loss_c - loss_h) / abs(loss_h)
-    log(f"train (c) gradient check ({TRAIN_CUT_LAYERS} layers, full width, "
-        f"fp32, batch {c['batch']} x seq {c['seq']}): loss card "
-        f"{loss_c!r} host {loss_h!r} (rel {rel!r}); "
-        f"gradient max |diff| / max |g| per leaf {worst!r}; card {card_s:.3f}"
-        f" s, host {host_s:.3f} s")
-    return dict(worst=max(worst.values()))
+    check(rel <= SERVE_LOGIT_RTOL,
+          f"{what}: loss {loss_c} on the card, {loss_h} on the host (rel "
+          f"{rel}, limit {SERVE_LOGIT_RTOL})")
+    gap = min((call[3] for call in host_calls), default=None)
+    log(f"{what} gradient check ({cfg.name}, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, fp32, batch {c['batch']} x seq {c['seq']})"
+        f": loss card {loss_c!r} host {loss_h!r} (rel {rel!r}); gradient max"
+        f" |diff| / max |g| per leaf {worst!r}"
+        + (f"; {len(card_calls)} MoE calls with equal router ids and keep "
+           f"masks, nearest top-k tie {gap!r} apart" if host_calls else "")
+        + f"; card {card_s:.3f} s, host {host_s:.3f} s")
+    del host, card_params, g_c, g_h
+    torch.cuda.empty_cache()
+    return dict(worst=max(worst.values()), loss_rel=rel)
+
+
+def train_bits(torch, mods, counters, cfg, what: str) -> dict:
+    """The step-1 loss and gradients of ``cfg`` (bf16) computed twice from
+    the same params and batch: every leaf finite, non-zero and equal bit
+    for bit across the two runs."""
+    tstep, lm = mods["tstep"], mods["lm"]
+    b, s = TRAIN_BITS["batch"], TRAIN_BITS["seq"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    params = tstep.as_trainable(lm.init_params(gen, cfg, device=DEV))
+    batch = tstep.make_train_batch(gen, cfg, b, s)
+    reset(counters)
+    runs = []
+    for _ in range(2):
+        loss, _parts, grads = tstep.loss_and_grads(params, batch, cfg)
+        runs.append((loss.detach(), dict(_named_leaves(grads))))
+        del grads
+    torch.cuda.synchronize()
+    _check_no_launch(counters, what)
+    (l1, g1), (l2, g2) = runs
+    bad = [name for name, g in g1.items()
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    check(not bad, f"{what}: step-1 gradient zero or not finite in {bad}")
+    differ = [name for name in g1 if not torch.equal(g1[name], g2[name])]
+    check(not differ and torch.equal(l1, l2),
+          f"{what}: two runs differ in the loss ({float(l1)!r} vs "
+          f"{float(l2)!r}) or at {len(differ)} of {len(g1)} gradient "
+          f"leaves: {differ}")
+    log(f"{what} run-to-run bits ({cfg.name}, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, bf16, batch {b} x seq {s}"
+        + (f", top-{cfg.top_k} of {cfg.n_experts} experts"
+           if cfg.n_experts else "")
+        + f"): loss {float(l1)!r} and all {len(g1)} gradient leaves bitwise "
+          f"equal across two runs, every leaf finite and non-zero")
+    n = len(g1)
+    del params, batch, runs, g1, g2
+    torch.cuda.empty_cache()
+    return dict(leaves=n)
 
 
 def training_path(torch, mods, counters, card: str) -> dict:
     """Slice 9's path: LM training (phase 3d (a)-(c))."""
+    configs = mods["configs"]
+    cfg = configs.get_config(TRAIN["arch"])
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
     t0 = time.time()
-    full = train_full(torch, mods, counters, card)
-    life = train_lifecycle(torch, mods, counters, card)
-    grads = train_grad_check(torch, mods, counters)
+    full = train_full(torch, mods, counters, card, cfg, TRAIN["batch"],
+                      TRAIN["seq"], "train (a)", prefill_len=1024,
+                      grad_check=True)
+    life = train_lifecycle(
+        torch, mods, counters, card,
+        dict(arch=TRAIN["arch"], smoke=False, layers=TRAIN_CUT_LAYERS,
+             batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN_LR),
+        TRAIN["steps"] // 2, "train (b)")
+    grads = train_grad_check(torch, mods, counters,
+                             dataclasses.replace(cut, dtype="float32"),
+                             "train (c)")
     log(f"train phase 3d: {time.time() - t0:.1f} s wall")
     return dict(full=full, lifecycle=life, grads=grads,
                 launches=full["launches"])
@@ -1852,8 +2131,11 @@ def recording_moe(mods, calls: list):
     saved = lm.moe_ffn
 
     def recorded(params, x, cfg, *, no_drop=False):
-        ids, keep = moe.routing(params, x, cfg, no_drop=no_drop)
-        top = moe.route(params, x, cfg)[0].sort(dim=-1, descending=True)[0]
+        # outside autograd: a training step records the same decisions
+        plain = {k: v.detach() for k, v in params.items()}
+        ids, keep = moe.routing(plain, x.detach(), cfg, no_drop=no_drop)
+        top = moe.route(plain, x.detach(), cfg)[0].sort(dim=-1,
+                                                        descending=True)[0]
         k = cfg.top_k
         gap = (float((top[..., k - 1] - top[..., k]).min())
                if k < top.shape[-1] else float("inf"))
@@ -2154,6 +2436,70 @@ def lm_families_path(torch, mods, counters, card: str) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Phase 3f: the MoE, Mamba, hybrid and stub-frontend archs trained
+# ---------------------------------------------------------------------------
+
+
+def _family_cfg(configs, arch: str, depth, dtype: str = "bfloat16"):
+    """``arch`` at its published width, ``depth`` layers (None: all;
+    "group": one layer group), or its smoke config's widths and depth
+    ("smoke") with the published config's chunks (``ssm_chunk``,
+    ``moe_chunk``: the smoke config's Mamba chunk of 8 would cut a
+    2048-token row into 256 chunks of launches), in ``dtype``."""
+    cfg = configs.get_config(arch)
+    if depth == "smoke":
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  ssm_chunk=cfg.ssm_chunk,
+                                  moe_chunk=cfg.moe_chunk)
+    else:
+        layers = {None: cfg.n_layers, "group": cfg.period}.get(depth, depth)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def family_training_path(torch, mods, counters, card: str) -> dict:
+    """Slice 13's path (phase 3f): the six archs of the MoE, Mamba, hybrid
+    and stub-frontend families trained on the card, one arch's state freed
+    before the next."""
+    configs = mods["configs"]
+    t0 = time.time()
+    lines = {}
+    for arch, depth, b in FAMILY_TRAIN:
+        t1 = time.time()
+        lines[arch] = train_full(
+            torch, mods, counters, card, _family_cfg(configs, arch, depth),
+            b, TRAIN["seq"], "train 3f (a)", lr=FAMILY_LR.get(arch, TRAIN_LR),
+            prefill_len=TRAIN["seq"] if arch in FAMILY_SERVE else 0)
+        log(f"train 3f (a) {arch}: {time.time() - t1:.1f} s")
+    t1 = time.time()
+    group = {arch: "smoke" if depth == "smoke" else "group"
+             for arch, depth, _b in FAMILY_TRAIN}
+    for arch in group:
+        train_bits(torch, mods, counters,
+                   _family_cfg(configs, arch, group[arch]), "train 3f (b)")
+    train_bits(torch, mods, counters,
+               _family_cfg(configs, TRAIN["arch"], TRAIN_CUT_LAYERS),
+               "train 3f (b)")
+    log(f"train 3f (b): {time.time() - t1:.1f} s")
+    t1 = time.time()
+    for arch in group:
+        train_grad_check(torch, mods, counters,
+                         _family_cfg(configs, arch, group[arch], "float32"),
+                         f"train 3f (c) {arch}")
+    log(f"train 3f (c): {time.time() - t1:.1f} s")
+    for arch in FAMILY_LIFECYCLE:
+        t1 = time.time()
+        train_lifecycle(torch, mods, counters, card,
+                        dict(FAMILY_LIFECYCLE_JOB, arch=arch,
+                             lr=FAMILY_LR.get(arch, TRAIN_LR)),
+                        TRAIN["steps"], f"train 3f (d) {arch}")
+        train_restore_mixed(torch, mods, arch, f"train 3f (d) {arch}")
+        log(f"train 3f (d) {arch}: {time.time() - t1:.1f} s")
+    log(f"train families phase 3f: {time.time() - t0:.1f} s wall")
+    return lines
+
+
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
@@ -2163,11 +2509,14 @@ def profile_window(torch, label, fn, top: int = 6) -> dict:
     """Run ``fn`` under ``torch.profiler``; print the device's busy share of
     the window's wall time and the kernels that took the most device time,
     and return the wall, the busy time and each kernel's time (ms).  Only
-    the device's own entries (kernels, copies, memsets) are summed: the
-    host ops that launched them carry the same time again."""
+    the device is traced (kernels, copies, memsets): every number here is
+    the device's, and the host side of a window's trace took the profiler
+    up to 43 s to read back (falcon-mamba's prefill, 49,791 device ops;
+    PERF.md)."""
     prof_mod = torch.profiler
-    acts = [prof_mod.ProfilerActivity.CPU, prof_mod.ProfilerActivity.CUDA]
+    acts = [prof_mod.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    t_read = time.time()
     with prof_mod.profile(activities=acts) as prof:
         t0 = time.time()
         fn()
@@ -2176,11 +2525,13 @@ def profile_window(torch, label, fn, top: int = 6) -> dict:
     device = torch.autograd.DeviceType.CUDA
     evts = [e for e in prof.key_averages()
             if e.device_type == device and _device_us(e) > 0]
+    read_s = time.time() - t_read - wall_us / 1e6
     busy = sum(_device_us(e) for e in evts)
     ranked = sorted(evts, key=_device_us, reverse=True)[:top]
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiler on), "
         f"device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of the "
-        f"wall, {sum(e.count for e in evts)} device ops; top: " + "; ".join(
+        f"wall, {sum(e.count for e in evts)} device ops, the profiler's own "
+        f"set-up and read-back {read_s:.1f} s; top: " + "; ".join(
             f"{e.key[:60]} x{e.count} {_device_us(e) / 1e3:.3f} ms"
             for e in ranked))
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
@@ -3215,7 +3566,7 @@ def fleet_failover(torch, mods, work, ref, warm) -> dict:
     manager = service.WorkerManager(
         root, FLEET_WORKERS, worker_config=_fleet_config(warm),
         overrides={FLEET_VICTIM: dict(FLEET_ADMIT_ONLY)},
-        heartbeat_interval=0.25)
+        heartbeat_interval=0.25, miss_deadline=FLEET_MISS_DEADLINE)
     t0 = time.time()
     with CardMemory(torch) as mem:
         try:
@@ -3448,7 +3799,8 @@ def rolling_restart(torch, mods, work, ref, warm) -> dict:
     km = [w for w in work if w[1] == "kmeans"][:STANDBY_REQUESTS]
     manager = service.WorkerManager(
         workdir(mods, "roll_"), ROLL_WORKERS,
-        worker_config=_fleet_config(warm), heartbeat_interval=0.25)
+        worker_config=_fleet_config(warm), heartbeat_interval=0.25,
+        miss_deadline=FLEET_MISS_DEADLINE)
     with CardMemory(torch) as mem:
         router = None
         try:
@@ -3532,23 +3884,14 @@ def small_checks(torch, mods) -> None:
     log("cancel: pre-cancelled job ended SUSPENDED")
 
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke: src/repro_torch not found next to this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def load_modules() -> tuple:
+    """The port's modules every phase reads (``mods``) and the kernel
+    wrappers whose launches the paths count (``counters``)."""
     from repro_torch.core import dbscan, kmeans
     from repro_torch.core import cancellation as cancel
     from repro_torch.core import distributed as dist
     from repro_torch.data import synthetic as synth
     from repro_torch import configs
-    from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops as aops, ref as aref
     from repro_torch.kernels.distance import fused as fops
     from repro_torch.kernels.distance import ops as dops, ref as dref
@@ -3556,7 +3899,6 @@ def main() -> int:
     from repro_torch.launch import mine, serve, serve_mine
     from repro_torch.launch import train as launch_train
     from repro_torch.models import frontends, layers, lm, moe
-    from repro_torch.runtime import backend
     from repro_torch import optim, service
     from repro_torch.checkpoint import store
     from repro_torch.train import step as tstep
@@ -3589,6 +3931,24 @@ def main() -> int:
                 "expand_frontier_cross": nops.expand_frontier_cross,
                 "reduce_partials": fops.reduce_partials,
                 "flash_attention": aops.flash_attention}
+    return mods, counters
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found next to this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import backend
+
+    mods, counters = load_modules()
     t_start = time.time()
     card = card_line()
     log(f"card: {card}")
@@ -3634,6 +3994,12 @@ def main() -> int:
                 "flash_attention_gqa32_8":
                     families["phi3.5-moe-42b-a6.6b"]["flash"]
                     + families["jamba-v0.1-52b"]["flash"]}
+            fam_train = family_training_path(torch, mods, counters, card)
+            fam_train_launches = {
+                "flash_attention_olmoe":
+                    fam_train["olmoe-1b-7b"]["prefill_flash"],
+                "flash_attention_musicgen":
+                    fam_train["musicgen-medium"]["prefill_flash"]}
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)
@@ -3670,6 +4036,8 @@ def main() -> int:
                      if k.endswith("_cross")})
     launches["assign_clusters_d2048"] = ex_assign
     launches.update(fam_launches)
+    for name, n in fam_train_launches.items():
+        launches[name] += n
     launches["fused_masked_partials_pod"] = pod_launches[
         "fused_masked_assign_update"]
     ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
@@ -3692,6 +4060,8 @@ def main() -> int:
                             row["name"]),
                         "launches_lm_families_path": fam_launches.get(
                             row["name"]),
+                        "launches_training_families_path":
+                            fam_train_launches.get(row["name"]),
                         "launches_pod_path": (
                             pod_launches["fused_masked_assign_update"]
                             if row["name"] == "fused_masked_partials_pod"

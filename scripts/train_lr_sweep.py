@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""OLMo-1B's loss over a few train steps at several peak learning rates, on
+"""An LM's loss over a few train steps at several peak learning rates, on
 one CUDA card: the runs behind ``chip_smoke.py``'s ``TRAIN_LR``.
 
-    python3 scripts/train_lr_sweep.py [--lrs 1e-4 3e-5 1e-5] [--steps 4]
+    python3 scripts/train_lr_sweep.py [--arch olmo-1b] [--layers N | --smoke]
+        [--lrs 1e-4 3e-5 1e-5] [--steps 4] [--batch 16] [--seq 2048]
         [--fp32-lr 1e-4]
 
-Each run is phase 3d (a)'s: OLMo-1B at its published width and depth
-(bf16 weights, fp32 master, mu and nu, remat "full"), one fixed synthetic
-batch of 16 x 2048 tokens, ``make_train_step`` with the wsd schedule over
-``--steps`` steps.  ``--fp32-lr`` adds one run with fp32 weights, to tell
-the learning rate's effect from bf16's.  Prints the card (``nvidia-smi``)
-and, per run, each step's loss, gradient norm and wall seconds (host clock
-to a device sync), one JSON line a run.  Exits non-zero without a CUDA
-device.
+Each run is phase 3d (a)'s (or, with another ``--arch``, phase 3f (a)'s):
+the arch at its published width (depth ``--layers``, every layer by
+default; ``--smoke`` for its smoke config), bf16 weights, fp32 master, mu
+and nu, remat "full", one fixed synthetic batch of ``--batch`` x ``--seq``
+tokens (a stub frontend's prefix rows among them),
+``make_train_step`` with the wsd schedule over ``--steps`` steps.
+``--fp32-lr`` adds one run with fp32 weights, to tell the learning rate's
+effect from bf16's.  Prints the card (``nvidia-smi``) and, per run, each
+step's loss (and the MoE aux loss), gradient norm and wall seconds (host
+clock to a device sync), one JSON line a run.  Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ def run(torch, cfg, lr: float, steps: int, batch: int, seq: int) -> list:
         t0 = time.perf_counter()
         state, metrics = train_step(state, data)
         loss = float(metrics["loss"])
-        out.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+        out.append({"loss": loss, "aux": float(metrics["aux"]),
+                    "grad_norm": float(metrics["grad_norm"]),
                     "s": time.perf_counter() - t0})
     del state, data
     torch.cuda.empty_cache()
@@ -51,6 +56,10 @@ def run(torch, cfg, lr: float, steps: int, batch: int, seq: int) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    depth = ap.add_mutually_exclusive_group()
+    depth.add_argument("--layers", type=int, default=None)
+    depth.add_argument("--smoke", action="store_true")
     ap.add_argument("--lrs", type=float, nargs="+", default=[1e-4, 3e-5, 1e-5])
     ap.add_argument("--fp32-lr", type=float, default=1e-4)
     ap.add_argument("--steps", type=int, default=4)
@@ -65,19 +74,21 @@ def main() -> int:
         print("train_lr_sweep: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from repro_torch.configs import get_config
+    from repro_torch import configs
     from repro_torch.runtime import backend
 
     print(f"card: {chip_smoke.card_line()}", flush=True)
     backend.load("cuda")
-    cfg = get_config("olmo-1b")
+    cfg = chip_smoke._family_cfg(configs, args.arch,
+                                 "smoke" if args.smoke else args.layers)
     runs = [("bfloat16", lr) for lr in args.lrs]
     if args.fp32_lr:
         runs.append(("float32", args.fp32_lr))
     for dtype, lr in runs:
         steps = run(torch, dataclasses.replace(cfg, dtype=dtype), lr,
                     args.steps, args.batch, args.seq)
-        print(json.dumps({"dtype": dtype, "lr": lr, "steps": steps}),
+        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers,
+                          "dtype": dtype, "lr": lr, "steps": steps}),
               flush=True)
     return 0
 

@@ -23,7 +23,12 @@ section 3):
   ``jax.lax.top_k`` gives (:func:`_top_k`; ``torch.topk`` promises none);
 - the combine gathers each token's k expert outputs and adds them in
   ascending expert id, one add after another: no scatter-add, so two runs
-  on the card give the same bits.
+  on the card give the same bits;
+- so does the backward pass: every row move of the dispatch and the
+  combine is a :class:`_Rows`, whose gradient is a gather too, and a
+  token's gradient from its k slots is added in ascending expert id, the
+  combine's order (a gather's own backward is a float scatter-add, whose
+  atomics add a token's k terms in whatever order they land).
 
 Under autograd, when a row has more than one group, each group is
 recomputed in the backward pass (the reference's per-group
@@ -101,13 +106,15 @@ def aux_loss(probs: torch.Tensor, top_ids: torch.Tensor, n_experts: int
 class Dispatch(NamedTuple):
     """One group's dispatch, per batch row.
 
-    ``src`` (B, E, cap): the token filling each expert slot; ``filled``
-    (B, E, cap): whether one does; ``slot`` (B, G, k): each choice's slot
-    in the flattened (E * cap) buffer, E * cap when dropped; ``keep``
+    ``src`` (B, E, cap): the token filling each expert slot; ``choice``
+    (B, E, cap): which of that token's choices it is; ``filled`` (B, E,
+    cap): whether a token fills the slot; ``slot`` (B, G, k): each choice's
+    slot in the flattened (E * cap) buffer, E * cap when dropped; ``keep``
     (B, G, k): whether each choice was kept.  Choices (k) are in the
     router's order, largest weight first.
     """
     src: torch.Tensor
+    choice: torch.Tensor
     filled: torch.Tensor
     slot: torch.Tensor
     keep: torch.Tensor
@@ -141,9 +148,9 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int) -> Dispatch:
     c = torch.arange(cap, device=dev)
     filled = c < counts[..., None]
     at = (starts[..., None] + c).clamp(max=g * k - 1).reshape(b, e * cap)
-    src = (order.gather(1, at) // k).reshape(b, e, cap)
-    return Dispatch(src=src, filled=filled, slot=slot.reshape(b, g, k),
-                    keep=keep.reshape(b, g, k))
+    pair = order.gather(1, at).reshape(b, e, cap)
+    return Dispatch(src=pair // k, choice=pair % k, filled=filled,
+                    slot=slot.reshape(b, g, k), keep=keep.reshape(b, g, k))
 
 
 def _experts(params: Dict, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -163,25 +170,74 @@ def _experts(params: Dict, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(e, b, c, d).transpose(0, 1)
 
 
+def _pick(src: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor
+          ) -> torch.Tensor:
+    """Row ``idx[b, i]`` of ``src`` (B, R, d) where ``ok[b, i]``, zero
+    elsewhere: (B, N, d).  A masked index may be R, the sentinel of a
+    dropped choice (the zero row the reference appends)."""
+    b, r, d = src.shape
+    idx = idx.reshape(b, -1, 1).clamp(max=r - 1).expand(-1, -1, d)
+    rows = src.gather(1, idx)
+    return torch.where(ok.reshape(b, -1, 1), rows,
+                       torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+class _Rows(torch.autograd.Function):
+    """:func:`_pick` under autograd with a backward of gathers and adds in
+    a fixed order, no float atomics: row r of the input's gradient is the
+    sum over j, added in j order one add after another, of the output
+    gradient's row ``back[b, r, j]`` where ``back_ok[b, r, j]``.  ``back``
+    (B, R, m) is the transpose of ``idx``: every output row (b, i) with
+    ``ok`` stands in it once, at row ``idx[b, i]``; any other entry is
+    masked, or is the sentinel N."""
+
+    @staticmethod
+    def forward(ctx, src, idx, ok, back, back_ok):
+        ctx.save_for_backward(back, back_ok)
+        return _pick(src, idx, ok)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back, back_ok = ctx.saved_tensors
+        b, r, m = back.shape
+        parts = _pick(grad, back, back_ok).reshape(b, r, m, -1)
+        out = parts[:, :, 0]
+        for j in range(1, m):
+            out = out + parts[:, :, j]
+        return out, None, None, None, None
+
+
 def _group(params: Dict, x: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
            cfg: ModelConfig, cap: int) -> torch.Tensor:
     """One dispatch group across the batch: (B, G, d) -> (B, G, d)."""
     b, g, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    n = e * cap
     plan = dispatch(ids, e, cap)
-    rows = x.gather(1, plan.src.reshape(b, e * cap, 1).expand(-1, -1, d))
-    buf = torch.where(plan.filled.reshape(b, e * cap, 1), rows,
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    y = _experts(params, buf.reshape(b, e, cap, d), cfg)
-    y_flat = torch.cat([y.reshape(b, e * cap, d),
-                        torch.zeros((b, 1, d), dtype=y.dtype,
-                                    device=y.device)], dim=1)
-    # each token's choices in ascending expert id, added in that order
+    # each token's choices in ascending expert id: the order of every sum
+    # over them, forward and backward; ``at`` numbers them t * k + j
     by_expert = torch.argsort(ids, dim=-1)
-    slot = plan.slot.gather(2, by_expert)
-    wk = (w.to(x.dtype) * plan.keep.to(x.dtype)).gather(2, by_expert)
-    contrib = y_flat.gather(1, slot.reshape(b, g * k, 1).expand(-1, -1, d))
-    contrib = contrib.reshape(b, g, k, d) * wk[..., None]
+    slot = plan.slot.gather(2, by_expert).reshape(b, g * k)
+    keep = plan.keep.gather(2, by_expert).reshape(b, g * k)
+    base = torch.arange(g, device=x.device)[:, None] * k
+    at = (base + torch.argsort(by_expert, dim=-1)).reshape(b, g * k)
+    # the pair filling each slot, numbered as ``at`` numbers it
+    src, filled = plan.src.reshape(b, n), plan.filled.reshape(b, n)
+    pair = at.gather(1, (src * k + plan.choice.reshape(b, n)))
+    # dispatch: a token's gradient is the sum over its kept slots
+    buf = _Rows.apply(x, src, filled, slot.reshape(b, g, k),
+                      keep.reshape(b, g, k))
+    y = _experts(params, buf.reshape(b, e, cap, d), cfg).reshape(b, n, d)
+    # combine: each filled slot's gradient is its one pair's
+    contrib = _Rows.apply(y, slot, keep, pair[..., None],
+                          filled[..., None])
+    # the router weights in the same order (a dropped choice's
+    # contribution is already zero)
+    every = torch.ones_like(keep)
+    wk = _Rows.apply(w.to(x.dtype).reshape(b, g * k, 1),
+                     (base + by_expert).reshape(b, g * k), every,
+                     at[..., None], every[..., None])
+    contrib = contrib.reshape(b, g, k, d) * wk.reshape(b, g, k, 1)
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]

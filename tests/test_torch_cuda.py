@@ -598,38 +598,108 @@ def test_flash_wrapper_raises_on_inputs_that_need_a_gradient(gen):
     assert torch.equal(out, out2)
 
 
-def test_training_gradients_on_the_card_match_the_host():
-    """A smoke-config training loss and its gradients on the card (fp32)
-    against the same on the host, through the training attention route:
-    the flash counter stays put."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+# the dense arch the training test had, and the six archs of the MoE,
+# Mamba, hybrid and stub-frontend families; (arch, top_k) with olmoe's smoke
+# config also at top-8, olmoe-1b-7b's published k
+TRAIN_ARCHS = ["minicpm-2b", "internvl2-26b", "musicgen-medium",
+               "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
+               "jamba-v0.1-52b"]
+TRAIN_CASES = [(arch, None) for arch in TRAIN_ARCHS] + [("olmoe-1b-7b", 8)]
+TRAIN_IDS = TRAIN_ARCHS + ["olmoe-1b-7b-top8"]
+
+
+def _train_setup(arch, top_k=None, **change):
+    """A smoke config (chunked CE and attention), its params on the host
+    and a batch with a stub frontend's prefix embeddings."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.runtime import backend
     from repro_torch.train import step as tstep
-    from repro_torch.tree import tree_leaves, tree_map
 
     backend.load("cuda")  # fp32 matmul at "highest"
-    cfg = dataclasses.replace(get_smoke_config("minicpm-2b"), loss_chunk=2,
-                              attn_chunk=16)
+    if top_k is not None:
+        change["top_k"] = top_k
+    cfg = dataclasses.replace(get_smoke_config(arch), loss_chunk=2,
+                              attn_chunk=16, **change)
     host = tstep.init_train_state(0, cfg, device="cpu")
-    card = tstep.as_trainable(tree_map(lambda p: p.detach().cuda(),
-                                       host.params))
     batch = tstep.make_train_batch(torch.Generator().manual_seed(1), cfg,
                                    4, 32)
+    return cfg, host.params, batch
+
+
+def _recorded_routing(monkeypatch, calls):
+    """Every MoE call of the model also records its router ids and keep
+    mask (``moe.routing`` on the same input, outside autograd)."""
+    from repro_torch.models import lm, moe
+
+    saved = moe.moe_ffn
+
+    def recorded(params, x, cfg, *, no_drop=False):
+        with torch.no_grad():
+            calls.append(moe.routing(params, x, cfg, no_drop=no_drop))
+        return saved(params, x, cfg, no_drop=no_drop)
+
+    monkeypatch.setattr(lm, "moe_ffn", recorded)
+
+
+@pytest.mark.parametrize("arch,top_k", TRAIN_CASES, ids=TRAIN_IDS)
+def test_training_gradients_on_the_card_match_the_host(arch, top_k,
+                                                       monkeypatch):
+    """A smoke-config training loss and its gradients on the card (fp32)
+    against the same on the host, through the training attention route:
+    the flash counter stays put; every MoE call routes alike first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, host, batch = _train_setup(arch, top_k)
+    card = tstep.as_trainable(tree_map(lambda p: p.detach().cuda(), host))
     before = aops.flash_attention.launches
-    loss_h, _, g_h = tstep.loss_and_grads(host.params, batch, cfg)
+    calls_h, calls_c = [], []
+    _recorded_routing(monkeypatch, calls_h)
+    loss_h, _, g_h = tstep.loss_and_grads(host, batch, cfg)
+    _recorded_routing(monkeypatch, calls_c)
     loss_c, _, g_c = tstep.loss_and_grads(
         card, {k: v.cuda() for k, v in batch.items()}, cfg)
     torch.cuda.synchronize()
     assert aops.flash_attention.launches == before
+    n_moe = cfg.n_groups * sum(ff == "moe" for _m, ff in cfg.pattern)
+    assert len(calls_c) == len(calls_h) >= n_moe   # + remat recomputes
+    for (ids_c, keep_c), (ids_h, keep_h) in zip(calls_c, calls_h):
+        assert torch.equal(ids_c.cpu(), ids_h)
+        assert torch.equal(keep_c.cpu(), keep_h)
     assert abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
     for a, b in zip(tree_leaves(g_c), tree_leaves(g_h)):
         scale = float(b.abs().max())
         assert scale > 0 and torch.isfinite(a).all()
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,top_k", TRAIN_CASES, ids=TRAIN_IDS)
+def test_training_step_two_runs_on_the_card_are_bitwise_equal(arch, top_k,
+                                                              dtype):
+    """The loss and every gradient leaf of one step, twice from the same
+    params and batch on the card: bit for bit (the MoE backward adds a
+    token's k slot gradients in ascending expert id, no float atomics);
+    capacity 0.5 so the MoE archs drop choices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, host, batch = _train_setup(arch, top_k, dtype=dtype,
+                                    capacity_factor=0.5)
+    card = tstep.as_trainable(tree_map(lambda p: p.detach().cuda(), host))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    runs = [tstep.loss_and_grads(card, batch, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    (l1, _p1, g1), (l2, _p2, g2) = runs
+    assert torch.equal(l1, l2)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 def test_flash_kernel_reads_strided_views(gen):

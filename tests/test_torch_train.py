@@ -212,10 +212,13 @@ def test_bf16_train_step_runs_with_master_weights():
         assert torch.equal(p.detach(), m.to(torch.bfloat16))
 
 
-def test_train_state_checkpoint_round_trip_is_bit_exact(tmp_path):
+@pytest.mark.parametrize("arch", ["minicpm-2b", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_train_state_checkpoint_round_trip_is_bit_exact(tmp_path, arch):
     """params (bf16), mu, nu, master, count, step and the generator state
-    through the checkpoint store and back."""
-    cfg = dataclasses.replace(tconfigs.get_smoke_config("minicpm-2b"),
+    through the checkpoint store and back; the Mamba mixer's a_log and
+    dt_bias stay float32 in the bf16 params and in the master copy."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
                               dtype="bfloat16")
     state = tstep.init_train_state(4, cfg, device="cpu")
     step = tstep.make_train_step(cfg, AdamWConfig(lr=1e-2))
@@ -237,6 +240,18 @@ def test_train_state_checkpoint_round_trip_is_bit_exact(tmp_path):
     assert all(p.requires_grad for p in tree_leaves(back.params))
     manifest = store.manifest(1)["leaves"]
     assert manifest["params.embed"]["dtype"] == "bfloat16"
+    mamba = [(tree["layers"][sub]["mamba"][leaf], key)
+             for tree, key in ((back.params, "params"),
+                               (back.opt["master"], "opt.master"))
+             for sub in sorted(back.params["layers"])
+             if "mamba" in back.params["layers"][sub]
+             for leaf in ("a_log", "dt_bias")]
+    assert len(mamba) == (4 * sum(m == "mamba" for m, _ff in cfg.pattern)
+                          if cfg.family in ("ssm", "hybrid") else 0)
+    for leaf, key in mamba:
+        assert leaf.dtype == torch.float32, key
+    assert all(v["dtype"] == "float32" for k, v in manifest.items()
+               if k.endswith(("mamba.a_log", "mamba.dt_bias")))
     # the restored state trains on as the saved one does
     s1, m1 = step(state, batch)
     s2, m2 = step(back, batch)
