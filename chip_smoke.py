@@ -35,12 +35,13 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    attention at OLMo-1B's prefill shape (B 4, S 4096, 16 heads of 128,
    bf16, causal), GLM4-9B's (B 1, S 4096, 32 heads on 2 KV heads) and
    MiniCPM-2B's width (B 2, S 2048, 36 heads of 64), three more (odd
-   length with GQA, full attention at D 96, a narrow head), and phase 3e's
-   four other prefill shapes (B 2, S 2048: InternVL2-26B, 48 heads on 8
-   KV heads of 128; MusicGen-medium, 24 heads padded to 32 of 64;
-   OLMoE-1B-7B, 16 heads of 128; Phi3.5-MoE and Jamba, 32 heads on 8 KV
-   heads of 128; each a row of the kernels line with its plain and SDPA
-   times), within 2e-4
+   length with GQA, full attention at D 96 in fp32, a narrow head), and
+   phase 3e's seven other prefill shapes (B 2, S 2048: InternVL2-26B, 48
+   heads on 8 KV heads of 128; MusicGen-medium, 24 heads padded to 32 of
+   64; OLMoE-1B-7B, 16 heads of 128; Phi3.5-MoE and Jamba, 32 heads on 8
+   KV heads of 128; Phi3-mini-3.8B, 32 heads of 96; MiniCPM-2B, 36 heads
+   padded to 48 of 64; GLM4-9B, 32 heads on 2 KV heads of 128; each a row
+   of the kernels line with its plain and SDPA times), within 2e-4
    (fp32) / 3e-2 (bf16) of the plain version elementwise and within
    1e-4 / 1e-2 of its norm in every 128-row query block of a head (against
    the plain version in fp32), two launches bitwise equal;
@@ -48,8 +49,9 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    ``csrc/flash_sm90.cu``) and every fp32 row the CUDA-core one ("simt",
    ``csrc/attention.cu``).  Times kernel, plain version and a PyTorch
    yardstick (``library_ms``, never called by the port; SDPA for
-   attention), and the "simt" kernel on the OLMo-1B row's bf16 inputs
-   beside the "tc" one, held to the same two bounds.  The build step logs
+   attention), and the "simt" kernel on the OLMo-1B and Phi3-mini rows'
+   bf16 inputs beside the "tc" one, held to the same two bounds ("tc" at
+   D 96 at least 10x faster than "simt").  The build step logs
    the ``HGMMA``, ``HMMA`` and ``UTMALDG`` instructions in the SASS of the
    flash, assignment, fused and neighbour libraries and fails without
    tensor-core instructions (``HGMMA`` for flash and the neighbour
@@ -111,16 +113,18 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    tokens: every gradient leaf within 1e-3 of its largest |g| and the
    loss within 1e-4 relative; and a prefill of (a)'s trained weights
    launches flash "tc" once a layer.
-3e. Slice 11's path, the MoE, Mamba, hybrid and stub-frontend families,
-   run after phase 5: each of internvl2-26b, musicgen-medium,
-   olmoe-1b-7b, phi3.5-moe-42b-a6.6b (24 of its 32 layers), falcon-mamba-7b
-   and jamba-v0.1-52b (16 of 32 layers: two of its four periods) at its
-   published width with synthetic bf16 weights, batch 2, a 2048-token
+3e. Slices 11 and 14's path, the MoE, Mamba, hybrid and stub-frontend
+   families and the three other dense archs, run after phase 5: each of
+   internvl2-26b, musicgen-medium, olmoe-1b-7b, phi3.5-moe-42b-a6.6b (24
+   of its 32 layers), falcon-mamba-7b, jamba-v0.1-52b (16 of 32 layers:
+   two of its four periods), phi3-mini-3.8b, glm4-9b and minicpm-2b at
+   its published width with synthetic bf16 weights, batch 2, a 2048-token
    prompt and 16 greedy tokens, through ``serve.serve_batch`` (the two cut
    depths through ``lm.init_params`` + ``serve.generate`` on the cut
    config), one arch's weights freed before the next: one flash launch an
-   attention layer of the prefill (48, 48, 16, 24, 0 and 2), every one on
-   "tc", none in decode, no mining kernel; logits finite, tokens in the
+   attention layer of the prefill (48, 48, 16, 24, 0, 2, 32 at D 96, 40
+   and 40), every one on "tc", none in decode, no mining kernel; logits
+   finite, tokens in the
    vocabulary; prefill_s, ms per decode token and peak memory printed,
    with a profiler window over one more prefill and 4 decode steps, and
    for MoE the share of router choices dropped at capacity in a prefill,
@@ -135,8 +139,8 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    fp32), the same weights and prompts: prefill logits within 1e-4 of the
    largest |logit|, greedy tokens equal, and every MoE layer's router ids
    and keep mask equal (a flip prints the nearest tie's gap).
-3f. Slice 13's path, the same six archs trained on the card, run after
-   3e, one arch's state freed before the next.  (a) 3d's training at
+3f. Slices 13 and 14's path, the same nine archs trained on the card, run
+   after 3e, one arch's state freed before the next.  (a) 3d's training at
    published width (bf16, fp32 master / mu / nu, remat "full", wsd, 4
    steps at lr 1e-5, the MoE archs at 3e-6 (``FAMILY_LR``), on one fixed
    batch, the stub frontends' prefix rows from ``make_train_batch``):
@@ -144,20 +148,25 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    layers (what 80 GB holds) and falcon-mamba-7b at 2 of 64 (a step at
    20 layers takes 43 s), 8 x 2048; internvl2-26b at 4 of 48, 4 x 2048;
    phi3.5-moe at 2 of 32, 8 x 2048; jamba at its smoke config (one
-   period, narrow widths, the published Mamba chunk), 8 x 2048.  Each logs its state
+   period, narrow widths, the published Mamba chunk), 8 x 2048;
+   minicpm-2b at all 40 layers, 4 x 2048; phi3-mini-3.8b at 28 of 32
+   layers, 4 x 2048; glm4-9b at 11 of 40 layers, 2 x 2048 (what 80 GB
+   holds, from the meta-device trace).  Each logs its state
    reckoned at 16 B a parameter, then losses (ce and the MoE aux apart),
    the median step time of steps 2-4, tokens/s, MFU (6 x the active
    parameters a token, attention only for attention layers; the Mamba
    scan's element-wise work not counted), peak memory, each MoE layer's
    drop share at capacity 1.25 over the batch, and a profiler window over
    one more step (device only, as every window).  Every loss finite, step
-   4's below step 1's, no kernel launched in training.  (e) A prefill of the trained olmoe-1b-7b and
-   musicgen-medium weights (2 x 2048 positions, musicgen's 64 prefix rows
-   among them) launches flash "tc" once per attention layer, logits
-   finite.  (b) Each family at published width cut to one layer group
-   (jamba at its smoke config) and OLMo-1B at 3d's 2 layers, bf16, batch
-   2 x 2048: the step-1 loss and gradients computed twice are equal bit
-   for bit, every leaf finite and non-zero.  (c) The same cuts in fp32,
+   4's below step 1's, no kernel launched in training.  (e) A prefill of
+   the trained olmoe-1b-7b, musicgen-medium and phi3-mini-3.8b weights (2 x
+   2048 positions, musicgen's 64 prefix rows among them) launches flash
+   "tc" once per attention layer (phi3-mini's at D 96), logits finite.
+   (b) Each family at published width cut to one layer group
+   (jamba at its smoke config; one layer for a dense arch: minicpm-2b's
+   tied head, glm4-9b's GQA 16:1) and OLMo-1B at 3d's 2 layers, bf16,
+   batch 2 x 2048: the step-1 loss and gradients computed twice are equal
+   bit for bit, every leaf finite and non-zero.  (c) The same cuts in fp32,
    batch 2 x 256, card against host: every MoE call's router ids and keep
    masks equal (a flip prints the nearest tie's gap), then every gradient
    leaf within 1e-3 of its largest |g| and the loss within 1e-4 relative.
@@ -362,14 +371,26 @@ ATTN_SHAPES = [
     ("MusicGen-medium prefill", 2, 2048, 32, 32, 64, "bfloat16", True),
     ("OLMoE-1B-7B prefill", 2, 2048, 16, 16, 128, "bfloat16", True),
     ("Phi3.5-MoE / Jamba prefill", 2, 2048, 32, 8, 128, "bfloat16", True),
+    ("Phi3-mini-3.8B prefill", 2, 2048, 32, 32, 96, "bfloat16", True),
+    ("MiniCPM-2B prefill", 2, 2048, 48, 48, 64, "bfloat16", True),
+    ("GLM4-9B served prefill", 2, 2048, 32, 2, 128, "bfloat16", True),
 ]
 # the rows of the kernels line besides OLMo-1B's: every other prefill shape
-# of phase 3e (musicgen's 24 heads padded to 32; phi3.5-moe and jamba
-# share GQA 32/8; falcon-mamba has no attention)
+# of phase 3e (musicgen's 24 heads padded to 32 and minicpm's 36 to 48,
+# their KV heads with them, the padded heads masked after the kernel;
+# phi3.5-moe and jamba share GQA 32/8; falcon-mamba has no attention)
 ATTN_ROWS = {"InternVL2-26B prefill": "flash_attention_internvl2",
              "MusicGen-medium prefill": "flash_attention_musicgen",
              "OLMoE-1B-7B prefill": "flash_attention_olmoe",
-             "Phi3.5-MoE / Jamba prefill": "flash_attention_gqa32_8"}
+             "Phi3.5-MoE / Jamba prefill": "flash_attention_gqa32_8",
+             "Phi3-mini-3.8B prefill": "flash_attention_phi3",
+             "MiniCPM-2B prefill": "flash_attention_minicpm",
+             "GLM4-9B served prefill": "flash_attention_glm4"}
+# rows that also run the "simt" kernel on their bf16 inputs (OLMo-1B's,
+# the first, always does): phi3-mini's head width of 96 took "simt" before
+# "tc" had it, so "tc" must be at least ATTN_SIMT_SPEEDUP x faster there
+ATTN_SIMT = ("Phi3-mini-3.8B prefill",)
+ATTN_SIMT_SPEEDUP = 10.0
 # the reference's own flash-test tolerances (tests/test_parallel.py)
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # and per 128-row query block of one (b, h), the relative Frobenius error
@@ -382,11 +403,14 @@ ATTN_ROUTE = {"float32": "simt", "bfloat16": "tc"}
 SERVE = dict(arch="olmo-1b", batch=4, prompt_len=4096, gen=32)
 SERVE_CHECK = dict(batch=2, prompt_len=1024, gen=8)
 SERVE_LOGIT_RTOL = 1e-4
-# Phase 3e: the other six archs at their published widths, bf16, synthetic
+# Phase 3e: the other nine archs at their published widths, bf16, synthetic
 # weights, batch 2, a 2048-token prompt, 16 greedy tokens; depth as the
 # reference's n_params() lets 80 GB hold it (None: every layer).
 # phi3.5-moe is 2.6 GB a layer (83.7 GB whole): 24 of 32 layers.  jamba is
-# 25.5 GB a period of 8 layers (103 GB whole): 2 of 4 periods.
+# 25.5 GB a period of 8 layers (103 GB whole): 2 of 4 periods.  The three
+# dense archs at full depth: phi3-mini-3.8b (7.6 GB, heads of 96),
+# glm4-9b (18.8 GB, 32 heads on 2 KV heads), minicpm-2b (~6 GB, 36 heads
+# padded to 48, tied embeddings).
 SERVE_FAMILIES = [
     ("internvl2-26b", None),
     ("musicgen-medium", None),
@@ -394,6 +418,9 @@ SERVE_FAMILIES = [
     ("phi3.5-moe-42b-a6.6b", 24),
     ("falcon-mamba-7b", None),
     ("jamba-v0.1-52b", 16),
+    ("phi3-mini-3.8b", None),
+    ("glm4-9b", None),
+    ("minicpm-2b", None),
 ]
 SERVE_WIDE = dict(batch=2, prompt_len=2048, gen=16)
 # the stub frontends' prefill: prefix_len rows + the rest of the 2048
@@ -431,9 +458,16 @@ TRAIN_GRAD_TOL = 1e-3
 # falcon-mamba is cut by time: at 20 layers (65.25 GB on the card) a step
 # took 42.8 s, the chunked doubling scan's element-wise passes under
 # autograd (PERF.md), so it trains at 3d's cut of 2 layers.
+# The three dense archs by the same rule (the trace's argument + temp
+# bytes x 1.125 under 78 GB): minicpm-2b at all 40 layers, batch 4 (68.7
+# GB; batch 6: 78.8); phi3-mini-3.8b at 28 of 32 layers, batch 4 (73.3;
+# 30 layers: 78.3); glm4-9b at 11 of 40 layers, batch 2 (73.9; 12: 78.6),
+# its untied embedding and head alone 1.24 B parameters (19.9 GB of state).
 FAMILY_TRAIN = [("musicgen-medium", None, 16), ("olmoe-1b-7b", 7, 8),
                 ("falcon-mamba-7b", 2, 8), ("internvl2-26b", 4, 4),
-                ("phi3.5-moe-42b-a6.6b", 2, 8), ("jamba-v0.1-52b", "smoke", 8)]
+                ("phi3.5-moe-42b-a6.6b", 2, 8), ("jamba-v0.1-52b", "smoke", 8),
+                ("minicpm-2b", None, 4), ("phi3-mini-3.8b", 28, 4),
+                ("glm4-9b", 11, 2)]
 # The MoE archs' loss rose from step 3 to 4 at 1e-5 (olmoe at 7 layers
 # 11.4177, 11.4177, 11.0473, 12.2932; phi3.5-moe at 2 layers 10.9196,
 # 10.9196, 10.5100, 11.5391) and at 3e-5; at 3e-6 it falls every step
@@ -441,8 +475,9 @@ FAMILY_TRAIN = [("musicgen-medium", None, 16), ("olmoe-1b-7b", 7, 8),
 # and at 1e-6 and 3e-7 by less (scripts/train_lr_sweep.py --arch; PERF.md).
 # The others fall at TRAIN_LR.
 FAMILY_LR = {"olmoe-1b-7b": 3e-6, "phi3.5-moe-42b-a6.6b": 3e-6}
-# (e): the archs whose trained weights are prefilled (2 x TRAIN["seq"])
-FAMILY_SERVE = ("olmoe-1b-7b", "musicgen-medium")
+# (e): the archs whose trained weights are prefilled (2 x TRAIN["seq"]);
+# phi3-mini's on "tc" at D 96
+FAMILY_SERVE = ("olmoe-1b-7b", "musicgen-medium", "phi3-mini-3.8b")
 # (b): the step-1 gradients twice, each family at one layer group (jamba at
 # its smoke config), and OLMo-1B at 3d's cut, bf16
 TRAIN_BITS = dict(batch=2, seq=2048)
@@ -1261,16 +1296,16 @@ def kernel_attention(torch, mods, sass: dict) -> list:
                       block_error=blk, shape=shape,
                       library_call="torch.nn.functional."
                                    "scaled_dot_product_attention")
-        if rows:
+        if rows and what not in ATTN_SIMT:
             log(f"flash attention {label}: tc {ms!r} ms, plain {plain!r} ms, "
                 f"SDPA {lib!r} ms")
             rows.append(dict(common, name=ATTN_ROWS[what]))
             del ref, ref32, q, k, v, qt, kt, vt
             continue
-        # the serving shape: the CUDA-core route on the same bf16 inputs
-        # (the kernel the tensor-core one replaced on this path, and still
-        # the bf16 route at other widths), checked and timed beside the
-        # plain version and SDPA
+        # the serving shape (and ATTN_SIMT's): the CUDA-core route on the
+        # same bf16 inputs (the kernel the tensor-core one replaced on this
+        # path, and still the bf16 route at other widths), checked and
+        # timed beside the plain version and SDPA
         simt_out = aops._launch(q, k, v, causal, "simt")
         torch.cuda.synchronize()
         simt_err, simt_blk = close_to_plain(
@@ -1281,11 +1316,18 @@ def kernel_attention(torch, mods, sass: dict) -> list:
         del simt_out, ref, ref32
         simt = time_ms(torch, lambda: aops._launch(q, k, v, causal, "simt"),
                        reps=3)
-        log(f"flash attention {label}: tc {ms!r} ms, simt {simt!r} ms, "
-            f"plain {plain!r} ms, SDPA {lib!r} ms")
-        rows.append(dict(common, name="flash_attention", simt_ms=simt,
-                         simt_max_abs_err=simt_err,
-                         simt_block_error=simt_blk, sass=sass))
+        log(f"flash attention {label}: tc {ms!r} ms, simt {simt!r} ms "
+            f"({simt / ms:.1f} x tc), plain {plain!r} ms, SDPA {lib!r} ms")
+        if what in ATTN_SIMT:
+            check(simt >= ATTN_SIMT_SPEEDUP * ms,
+                  f"flash attention {label}: \"tc\" {ms} ms is not "
+                  f"{ATTN_SIMT_SPEEDUP}x below \"simt\"'s {simt} ms")
+        row = dict(common, name=ATTN_ROWS.get(what, "flash_attention"),
+                   simt_ms=simt, simt_max_abs_err=simt_err,
+                   simt_block_error=simt_blk)
+        if not rows:
+            row["sass"] = sass
+        rows.append(row)
         del q, k, v, qt, kt, vt
     return rows
 
@@ -2424,9 +2466,9 @@ def serve_twin(torch, mods, arch, card) -> None:
 
 
 def lm_families_path(torch, mods, counters, card: str) -> dict:
-    """Slice 11's path (phase 3e): the six archs of the MoE, Mamba, hybrid
-    and stub-frontend families served at published width, then each family
-    card against host in fp32."""
+    """Slices 11 and 14's path (phase 3e): the six archs of the MoE, Mamba,
+    hybrid and stub-frontend families and the three other dense archs
+    served at published width, then each card against host in fp32."""
     t0 = time.time()
     lines = {arch: serve_wide_arch(torch, mods, counters, arch, layers, card)
              for arch, layers in SERVE_FAMILIES}
@@ -2459,9 +2501,8 @@ def _family_cfg(configs, arch: str, depth, dtype: str = "bfloat16"):
 
 
 def family_training_path(torch, mods, counters, card: str) -> dict:
-    """Slice 13's path (phase 3f): the six archs of the MoE, Mamba, hybrid
-    and stub-frontend families trained on the card, one arch's state freed
-    before the next."""
+    """Slices 13 and 14's path (phase 3f): the nine archs of phase 3e
+    trained on the card, one arch's state freed before the next."""
     configs = mods["configs"]
     t0 = time.time()
     lines = {}
@@ -3993,13 +4034,18 @@ def main() -> int:
                 "flash_attention_olmoe": families["olmoe-1b-7b"]["flash"],
                 "flash_attention_gqa32_8":
                     families["phi3.5-moe-42b-a6.6b"]["flash"]
-                    + families["jamba-v0.1-52b"]["flash"]}
+                    + families["jamba-v0.1-52b"]["flash"],
+                "flash_attention_phi3": families["phi3-mini-3.8b"]["flash"],
+                "flash_attention_glm4": families["glm4-9b"]["flash"],
+                "flash_attention_minicpm": families["minicpm-2b"]["flash"]}
             fam_train = family_training_path(torch, mods, counters, card)
             fam_train_launches = {
                 "flash_attention_olmoe":
                     fam_train["olmoe-1b-7b"]["prefill_flash"],
                 "flash_attention_musicgen":
-                    fam_train["musicgen-medium"]["prefill_flash"]}
+                    fam_train["musicgen-medium"]["prefill_flash"],
+                "flash_attention_phi3":
+                    fam_train["phi3-mini-3.8b"]["prefill_flash"]}
             t_path = time.time()
             service_preemption(mods)
             small_checks(torch, mods)

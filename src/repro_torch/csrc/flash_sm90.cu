@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel in src/repro/kernels/attention/attention.py:
 // _flash_kernel (:42; flash_attention_kernel :97, pallas_call :129).  The
-// wrapper (kernels/attention/ops.py) routes a bf16 call here when D is 64 or
-// 128 and q, k, v meet TMA's alignment ("tc"); everything else (fp32, other
-// widths, unaligned views) runs the CUDA-core kernel in attention.cu
+// wrapper (kernels/attention/ops.py) routes a bf16 call here when D is 64,
+// 96 or 128 and q, k, v meet TMA's alignment ("tc"); everything else (fp32,
+// other widths, unaligned views) runs the CUDA-core kernel in attention.cu
 // ("simt").
 //
 // What it computes, for batch b, query head h and query row i:
@@ -29,13 +29,16 @@
 //   rows (one wgmma M = 64 each) and a producer warpgroup, of which one
 //   thread loads Q once and streams 128-key K and V tiles by TMA into a
 //   three-stage ring in dynamic shared memory (Q 32 KB + 3 x (K 32 KB +
-//   V 32 KB) = 224 KB at D = 128), handed over with mbarriers (full: TMA
+//   V 32 KB) = 224 KB at D = 128, 168 KB at D = 96), handed over with
+//   mbarriers (full: TMA
 //   bytes landed; empty: all eight consumer warps are done with the
 //   stage).  setmaxnreg moves the producer's registers to the consumers
 //   (24 / 240 a thread), which hold S, P and O at once without spilling.
 // - S = Q K^T: wgmma m64n128k16, both operands from shared memory, K-major
-//   (K lies (keys, D) as TMA writes it), 128-byte swizzle: a row of D = 128
-//   is two 64-column boxes.
+//   (K lies (keys, D) as TMA writes it).  A tile is cut along D into boxes
+//   one swizzle span wide: 64 columns under the 128-byte swizzle when D is
+//   a multiple of 64 (D = 128: two boxes), else 32 columns under the
+//   64-byte swizzle (D = 96, a 192-byte row: three boxes).
 // - Online softmax on the accumulator fragments: a thread holds two rows;
 //   row max and row sum over the 4 threads of a quad by __shfl_xor_sync over
 //   1 and 2; exp2 is one MUFU.EX2 (ex2.approx.ftz); O is rescaled only when
@@ -43,7 +46,8 @@
 // - O += P V: wgmma with P as the A operand from registers (the S
 //   accumulator's layout is the A fragment's, converted to bf16 in place)
 //   and V read from shared memory with the B transpose bit: V lies
-//   (keys, D), N-contiguous, and is never copied or transposed.
+//   (keys, D), N-contiguous, and is never copied or transposed.  N = D:
+//   m64n128k16, m64n96k16 (over V's three 32-column boxes) or m64n64k16.
 // - Overlap: a warpgroup issues S_t = Q K_t^T and O += P_{t-1} V_{t-1}
 //   back to back and runs the softmax of S_t while P V is on the tensor
 //   cores; named barriers make the two warpgroups take turns issuing, so
@@ -89,19 +93,29 @@ constexpr int kThreads = kConsumerWarps * 32 + 128;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // K/V bytes a group of heads may stream at once: well inside the 50 MB L2
 constexpr long long kL2Budget = 16ll << 20;
-constexpr int kBoxCols = 64;              // bf16 per 128-byte swizzled row
-constexpr int kBoxBytes = kBlockN * 128;  // one 64-column box: 16 KB
 static_assert(kBlockM == kBlockN, "Q and K/V tiles share one box shape");
 // C entry error codes past CUDA's: cuTensorMapEncodeTiled missing / failed
 constexpr int kErrNoEncode = 10000;
 constexpr int kErrEncode = 10001;
 
+// A Q, K or V tile of 128 rows, cut along D into boxes one swizzle span
+// wide: 128-byte rows of 64 columns when D is a multiple of 64, else
+// 64-byte rows of 32 columns (D = 96 is three).  A box's rows lie one
+// after another, each box a swizzle pattern of its own.
 template <int D>
 struct Tile {
+  static constexpr int kRowBytes = D % 64 == 0 ? 128 : 64;  // a box's row
+  static constexpr int kBoxCols = kRowBytes / 2;            // bf16 columns
   static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxBytes = kBlockN * kRowBytes;
   static constexpr int kBytes = kBoxes * kBoxBytes;  // one Q, K or V tile
   // Q, kStages K and V tiles, and slack to align the base to 1024 bytes
   static constexpr int kSmem = kBytes * (1 + 2 * kStages) + 1024;
+  // bytes between 8-row groups, the swizzle's period
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  static_assert(D % 32 == 0 && D % kBoxCols == 0, "whole boxes only");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -144,7 +158,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 
 // --- TMA ------------------------------------------------------------------
 
-// One box {64 columns, 1 head, 128 rows, 1 batch} of a (B, S, heads, D)
+// One box {box columns, 1 head, 128 rows, 1 batch} of a (B, S, heads, D)
 // tensor into shared memory at `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int col, int head,
@@ -157,8 +171,8 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A box {64 columns, 1 head, 64 rows, 1 batch} from shared memory at `src`
-// into a (B, S, heads, D) tensor; rows past S are dropped.
+// A box {box columns, 1 head, 64 rows, 1 batch} from shared memory at
+// `src` into a (B, S, heads, D) tensor; rows past S are dropped.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
                                           int col, int head, int row,
                                           int batch) {
@@ -171,15 +185,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
 
 // --- wgmma ----------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands (Q,
-// K): SBO = 1024 bytes between 8-row groups, LBO unused.  The N-contiguous
-// V: LBO = bytes between 64-column boxes, SBO = 1024 bytes between 8-key
-// groups.  Every tile base is 1024-byte aligned, so the base offset is 0.
+// Shared-memory matrix descriptor of a swizzled tile (layout 1: 128-byte
+// swizzle, 2: 64-byte).  K-major operands (Q, K): SBO = bytes between
+// 8-row groups, LBO unused.  The N-contiguous V: LBO = bytes between boxes
+// (one swizzle span of columns each), SBO = bytes between 8-key groups.
+// Every tile base is 1024-byte aligned, so the base offset is 0.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -269,6 +284,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tn(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 96, fp32) += A (64 x 16, bf16 registers) . B (16 x 96, shared,
+// N-contiguous: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n96k16_rs_tn(float (&d)[48],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -391,32 +435,39 @@ struct Softmax {
 };
 
 // Issue S = Q K^T (64 x 128) for a warpgroup: D / 16 steps of 16, each 32
-// bytes further along a 64-column box.
+// bytes further along a box's row, then on to the next box.
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k) {
+  using T = Tile<D>;
+  constexpr int kSteps = T::kRowBytes / 32;  // k-steps in a box's row
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-    wgmma_m64n128k16_ss(s, smem_desc(q + off, 16, 1024),
-                        smem_desc(k + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk / kSteps) * T::kBoxBytes + (kk % kSteps) * 32;
+    wgmma_m64n128k16_ss(s, smem_desc(q + off, 16, T::kGroupBytes, T::kLayout),
+                        smem_desc(k + off, 16, T::kGroupBytes, T::kLayout),
+                        kk > 0);
   }
   wgmma_commit();
 }
 
-// Issue O += P V: 8 steps of 16 keys (16 rows of 128 bytes of V).
+// Issue O += P V: 8 steps of 16 keys (16 rows of each box of V).
 template <int D>
 __device__ __forceinline__ void pv(float (&acc)[D / 2],
                                    const uint32_t (&pa)[kBlockN / 16][4],
                                    uint32_t v) {
+  using T = Tile<D>;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    const uint64_t dv = smem_desc(v + kk * 16 * 128, kBoxBytes, 1024);
+    const uint64_t dv = smem_desc(v + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                                  T::kGroupBytes, T::kLayout);
     if constexpr (D == 128)
       wgmma_m64n128k16_rs_tn(acc, pa[kk], dv);
+    else if constexpr (D == 96)
+      wgmma_m64n96k16_rs_tn(acc, pa[kk], dv);
     else
       wgmma_m64n64k16_rs_tn(acc, pa[kk], dv);
   }
@@ -500,18 +551,19 @@ flash_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(bar_q, T::kBytes);
       for (int x = 0; x < T::kBoxes; ++x)
-        tma_load(q_smem + x * kBoxBytes, &tq, bar_q, x * kBoxCols, h, q0, b);
+        tma_load(q_smem + x * T::kBoxBytes, &tq, bar_q, x * T::kBoxCols, h,
+                 q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages, round = t / kStages;
         if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
         mbar_expect_tx(k_full(s), T::kBytes);
         for (int x = 0; x < T::kBoxes; ++x)
-          tma_load(k_smem(s) + x * kBoxBytes, &tk, k_full(s), x * kBoxCols,
-                   hk, t * kBlockN, b);
+          tma_load(k_smem(s) + x * T::kBoxBytes, &tk, k_full(s),
+                   x * T::kBoxCols, hk, t * kBlockN, b);
         mbar_expect_tx(v_full(s), T::kBytes);
         for (int x = 0; x < T::kBoxes; ++x)
-          tma_load(v_smem(s) + x * kBoxBytes, &tv, v_full(s), x * kBoxCols,
-                   hk, t * kBlockN, b);
+          tma_load(v_smem(s) + x * T::kBoxBytes, &tv, v_full(s),
+                   x * T::kBoxCols, hk, t * kBlockN, b);
       }
     }
     return;
@@ -524,7 +576,7 @@ flash_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   Rows rows;
   rows.a = wg_row0 + (warp & 3) * 16 + (lane >> 2);
   rows.b = rows.a + 8;
-  const uint32_t q_wg = q_smem + wg * 64 * 128;  // its rows in each box
+  const uint32_t q_wg = q_smem + wg * 64 * T::kRowBytes;  // its rows
   // the diagonal tile (causal) and a ragged last tile need the mask
   auto edge = [&](int t) {
     const int key0 = t * kBlockN;
@@ -591,25 +643,32 @@ flash_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const float inv_a = 1.f / fmaxf(sm.row_sum(0), 1e-30f);
   const float inv_b = 1.f / fmaxf(sm.row_sum(1), 1e-30f);
   const int ra = (warp & 3) * 16 + (lane >> 2);  // row a within the 64
+  // the swizzle XORs a row's 16-byte chunk index with address bits 7 and
+  // up: the row mod 8 for 128-byte rows, (row / 2) mod 4 for 64-byte ones;
+  // rows ra and ra + 8 share it
+  constexpr int kChunks = T::kRowBytes / 16;
+  const int sw = T::kRowBytes == 128 ? (ra & 7) : ((ra >> 1) & 3);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    // 16-byte chunk j % 8 of a 128-byte row lies at chunk (j % 8) ^ (row % 8)
-    const uint32_t at = q_wg + (j >> 3) * kBoxBytes +
-                        (((j & 7) ^ (ra & 7)) << 4) + 4 * (lane & 3);
+    // columns 8 j ... 8 j + 7: chunk j % kChunks of box j / kChunks
+    const uint32_t at = q_wg + (j / kChunks) * T::kBoxBytes +
+                        (((j % kChunks) ^ sw) << 4) + 4 * (lane & 3);
     const uint32_t word_a =
         pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
     const uint32_t word_b =
         pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
-    asm volatile("st.shared.u32 [%0], %1;" ::"r"(at + ra * 128),
+    asm volatile("st.shared.u32 [%0], %1;" ::"r"(at + ra * T::kRowBytes),
                  "r"(word_a));
-    asm volatile("st.shared.u32 [%0], %1;" ::"r"(at + (ra + 8) * 128),
+    asm volatile("st.shared.u32 [%0], %1;" ::"r"(at + (ra + 8) *
+                                                        T::kRowBytes),
                  "r"(word_b));
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   warpgroup_sync(wg);
   if ((threadIdx.x & 127) == 0) {
     for (int x = 0; x < T::kBoxes; ++x)
-      tma_store(&to, q_wg + x * kBoxBytes, x * kBoxCols, h, wg_row0, b);
+      tma_store(&to, q_wg + x * T::kBoxBytes, x * T::kBoxCols, h, wg_row0,
+                b);
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     // shared memory must outlive the reads of the store
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
@@ -646,22 +705,25 @@ EncodeTiled encode_fn() {
 int last_encode_result = 0;
 
 // A 4-D map {D, heads, S, B} over a bf16 (B, S, heads, D) tensor with the
-// given element strides; boxes of {64, 1, rows, 1}, 128-byte swizzle; rows
-// past S read as zeros and are not written.
-int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int d,
+// given element strides; boxes of {Tile<D>::kBoxCols, 1, rows, 1} under
+// Tile<D>'s swizzle; rows past S read as zeros and are not written.
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
            long long sb, long long ss, long long sh, int rows) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kErrNoEncode;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::kBoxCols, 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        Tile<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                  : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   last_encode_result = (int)r;
@@ -673,11 +735,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KV, int Sq, int Sk, const long long* st, float scale,
            int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  int err = encode(&tq, q, B, Sq, H, D, st[0], st[1], st[2], kBlockM);
-  if (!err) err = encode(&tk, k, B, Sk, KV, D, st[3], st[4], st[5], kBlockN);
-  if (!err) err = encode(&tv, v, B, Sk, KV, D, st[6], st[7], st[8], kBlockN);
+  int err = encode<D>(&tq, q, B, Sq, H, st[0], st[1], st[2], kBlockM);
+  if (!err) err = encode<D>(&tk, k, B, Sk, KV, st[3], st[4], st[5], kBlockN);
+  if (!err) err = encode<D>(&tv, v, B, Sk, KV, st[6], st[7], st[8], kBlockN);
   // each consumer warpgroup stores its own 64 rows
-  if (!err) err = encode(&to, o, B, Sq, H, D, st[9], st[10], st[11], 64);
+  if (!err) err = encode<D>(&to, o, B, Sq, H, st[9], st[10], st[11], 64);
   if (err) return err;
   auto kernel = flash_sm90_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -703,7 +765,7 @@ extern "C" {
 // bf16 q (B, Sq, H, D), k and v (B, Sk, KV, D), o (B, Sq, H, D) on the
 // current device, unit stride along D; the other strides are in elements,
 // multiples of 8, and q, k, v start on 16-byte boundaries (TMA's rules).
-// D is 64 or 128, H % KV == 0, B * H * ceil(Sq / 128) < 2^31.  Launches on
+// D is 64, 96 or 128, H % KV == 0, B * H * ceil(Sq / 128) < 2^31.  Launches on
 // `stream` and returns 0 or an error code for kernel_error_string; does not
 // synchronise.
 int flash_sm90_fwd(const void* q, const void* k, const void* v, void* o,
@@ -721,6 +783,8 @@ int flash_sm90_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128)
     return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, s);
+  if (d == 96)
+    return launch<96>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, s);
   if (d == 64)
     return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;

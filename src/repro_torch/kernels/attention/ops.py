@@ -6,8 +6,8 @@ kernel is decided before the launch, from dtype, shape and strides alone
 (:func:`_route`):
 
 - ``"tc"``: ``csrc/flash_sm90.cu``, Hopper's tensor cores (``wgmma`` on
-  bf16, TMA-staged tiles), for bf16 with D 64 or 128 whose q, k and v meet
-  TMA's alignment (16-byte base, strides multiples of 8 elements, unit
+  bf16, TMA-staged tiles), for bf16 with D 64, 96 or 128 whose q, k and v
+  meet TMA's alignment (16-byte base, strides multiples of 8 elements, unit
   stride along D);
 - ``"simt"``: ``csrc/attention.cu``, fp32 arithmetic on the CUDA cores,
   for everything else (fp32, other head widths, unaligned views).
@@ -44,8 +44,9 @@ __all__ = ["flash_attention", "attention_ref", "flash_flops", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core kernel's head widths
-_TC_HEAD_DIMS = (64, 128)
+# the tensor-core kernel's head widths: whole 128-byte swizzled boxes (64,
+# 128) or 64-byte ones (96, phi3-mini's)
+_TC_HEAD_DIMS = (64, 96, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {

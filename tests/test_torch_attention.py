@@ -117,10 +117,12 @@ def test_flash_attention_rejects_other_dtypes():
     (torch.bfloat16, 12, "simt"),
     (torch.bfloat16, 16, "simt"),
     (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 96, "simt"),     # 192-byte rows: no 128-byte boxes
+    (torch.bfloat16, 96, "tc"),       # phi3-mini: three 64-byte boxes a row
     (torch.bfloat16, 256, "simt"),
     (torch.float32, 64, "simt"),      # fp32 keeps fp32 arithmetic
     (torch.float32, 128, "simt"),
+    (torch.bfloat16, 80, "simt"),     # 160-byte rows: no whole boxes
+    (torch.bfloat16, 192, "simt"),
 ])
 def test_route_by_dtype_and_head_width(dtype, d, route):
     q = torch.zeros((2, 10, 4, d), dtype=dtype)
@@ -128,30 +130,30 @@ def test_route_by_dtype_and_head_width(dtype, d, route):
     assert tops._route(q, k, k.clone()) == route
 
 
-def _view(kind: str) -> torch.Tensor:
-    """A bf16 (2, 10, 4, 64) q laid out as ``kind`` says."""
+def _view(kind: str, d: int = 64) -> torch.Tensor:
+    """A bf16 (2, 10, 4, d) q laid out as ``kind`` says."""
     bf = torch.bfloat16
     if kind == "contiguous":
-        return torch.zeros((2, 10, 4, 64), dtype=bf)
+        return torch.zeros((2, 10, 4, d), dtype=bf)
     if kind == "qkv slice":               # (B, S, 3H, D) cut along heads
-        return torch.zeros((2, 10, 12, 64), dtype=bf)[:, :, 4:8]
+        return torch.zeros((2, 10, 12, d), dtype=bf)[:, :, 4:8]
     if kind == "heads outside sequence":  # (B, H, S, D) storage
-        return torch.zeros((2, 4, 10, 64), dtype=bf).transpose(1, 2)
+        return torch.zeros((2, 4, 10, d), dtype=bf).transpose(1, 2)
     if kind == "D not unit stride":
-        return torch.zeros((2, 64, 4, 10), dtype=bf).transpose(1, 3)
+        return torch.zeros((2, d, 4, 10), dtype=bf).transpose(1, 3)
     if kind == "base 2 bytes off 16":
-        return torch.zeros(1 + 2 * 10 * 4 * 64, dtype=bf)[1:].view(2, 10, 4,
-                                                                  64)
+        return torch.zeros(1 + 2 * 10 * 4 * d, dtype=bf)[1:].view(2, 10, 4,
+                                                                 d)
     if kind == "row stride not a multiple of 8":
-        return torch.zeros((2, 10, 4 * 64 + 4), dtype=bf)[:, :, :256] \
-            .unflatten(2, (4, 64))
+        return torch.zeros((2, 10, 4 * d + 4), dtype=bf)[:, :, :4 * d] \
+            .unflatten(2, (4, d))
     if kind == "size-1 dims with odd strides":   # B = H = 1: never stepped
-        return torch.zeros(4096, dtype=bf).as_strided((1, 10, 1, 64),
-                                                      (3, 64, 5, 1))
+        return torch.zeros(4096, dtype=bf).as_strided((1, 10, 1, d),
+                                                      (3, d, 5, 1))
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind,route", [
+_LAYOUTS = [
     ("contiguous", "tc"),
     ("qkv slice", "tc"),
     ("heads outside sequence", "tc"),
@@ -159,10 +161,19 @@ def _view(kind: str) -> torch.Tensor:
     ("base 2 bytes off 16", "simt"),
     ("row stride not a multiple of 8", "simt"),
     ("size-1 dims with odd strides", "tc"),
+]
+
+
+@pytest.mark.parametrize("kind,route,d", [
+    *[pytest.param(kind, route, 64, id=f"{kind}-{route}")
+      for kind, route in _LAYOUTS],
+    # phi3-mini's head width takes the same rules
+    *[pytest.param(kind, route, 96, id=f"{kind}-{route}-d96")
+      for kind, route in _LAYOUTS],
 ])
 @pytest.mark.parametrize("which", ["q", "v"])
-def test_route_by_strides_and_alignment(kind, route, which):
-    x = _view(kind)
+def test_route_by_strides_and_alignment(kind, route, d, which):
+    x = _view(kind, d)
     other = torch.zeros(x.shape, dtype=x.dtype)
     q, v = (x, other) if which == "q" else (other, x)
     assert tops._route(q, other.clone(), v) == route

@@ -598,12 +598,13 @@ def test_flash_wrapper_raises_on_inputs_that_need_a_gradient(gen):
     assert torch.equal(out, out2)
 
 
-# the dense arch the training test had, and the six archs of the MoE,
-# Mamba, hybrid and stub-frontend families; (arch, top_k) with olmoe's smoke
-# config also at top-8, olmoe-1b-7b's published k
+# the dense archs (minicpm's padded heads and tied embeddings, glm4's GQA,
+# phi3-mini), and the six archs of the MoE, Mamba, hybrid and
+# stub-frontend families; (arch, top_k) with olmoe's smoke config also at
+# top-8, olmoe-1b-7b's published k
 TRAIN_ARCHS = ["minicpm-2b", "internvl2-26b", "musicgen-medium",
                "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
-               "jamba-v0.1-52b"]
+               "jamba-v0.1-52b", "glm4-9b", "phi3-mini-3.8b"]
 TRAIN_CASES = [(arch, None) for arch in TRAIN_ARCHS] + [("olmoe-1b-7b", 8)]
 TRAIN_IDS = TRAIN_ARCHS + ["olmoe-1b-7b-top8"]
 
@@ -702,6 +703,35 @@ def test_training_step_two_runs_on_the_card_are_bitwise_equal(arch, top_k,
         assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["minicpm-2b", "glm4-9b"])
+def test_dense_training_step_at_published_width_is_bitwise_equal(arch):
+    """One layer group (one layer) at the published width, bf16, 2 x 512
+    tokens: the loss and every gradient leaf of one step, twice, bit for
+    bit.  minicpm-2b's tied head adds the head GEMM's gradient to the
+    embedding lookup's; glm4-9b repeats 2 KV heads 16 times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.period)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tstep.as_trainable(lm.init_params(gen, cfg, device="cuda"))
+    batch = tstep.make_train_batch(gen, cfg, 2, 512)
+    runs = [tstep.loss_and_grads(params, batch, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    (l1, _p1, g1), (l2, _p2, g2) = runs
+    assert torch.isfinite(l1) and torch.equal(l1, l2)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        assert torch.isfinite(a).all() and float(a.abs().max()) > 0
+        assert torch.equal(a, b)
+
+
 def test_flash_kernel_reads_strided_views(gen):
     qkv = torch.randn(2, 200, 12, 64, generator=gen).cuda()  # (B, S, 3H, D)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
@@ -714,7 +744,9 @@ def test_flash_kernel_reads_strided_views(gen):
                              k, v)
 
 
-# The tensor-core route (csrc/flash_sm90.cu): bf16, D 64 or 128, TMA-aligned.
+# The tensor-core route (csrc/flash_sm90.cu): bf16, D 64, 96 or 128,
+# TMA-aligned (D 96 in three 64-byte swizzled boxes a row, the others in
+# 128-byte ones).
 # It rounds the probabilities to bf16 before P.V; the bf16 tolerance is the
 # reference's own, as above.  At long rows outputs are ~0.03, below that
 # tolerance, so each 128-row query block of a head is also held to 1e-2 of
@@ -746,7 +778,7 @@ def _check_tc(q, k, v, causal):
 
 
 @pytest.mark.parametrize("s", [1, 127, 128, 129, 1000, 4096])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tc_route_matches_plain(gen, s, d, causal):
     b, h, kv = (1, 2, 2) if s == 4096 else (2, 4, 2)
@@ -757,16 +789,17 @@ def test_flash_tc_route_matches_plain(gen, s, d, causal):
     assert torch.equal(aops.flash_attention(q, k, v, causal=causal), out)
 
 
+@pytest.mark.parametrize("d", [96, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_tc_route_gqa_32_on_2(gen, causal):
-    q = _bf16(gen, 1, 600, 32, 128)
-    k, v = _bf16(gen, 1, 600, 2, 128), _bf16(gen, 1, 600, 2, 128)
+def test_flash_tc_route_gqa_32_on_2(gen, d, causal):
+    q = _bf16(gen, 1, 600, 32, d)
+    k, v = _bf16(gen, 1, 600, 2, d), _bf16(gen, 1, 600, 2, d)
     _check_tc(q, k, v, causal)
 
 
 @pytest.mark.parametrize("sq,sk", [(300, 130), (130, 300), (1, 257),
                                    (257, 1)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tc_route_unequal_lengths(gen, sq, sk, d, causal):
     q = _bf16(gen, 2, sq, 4, d)
@@ -774,7 +807,7 @@ def test_flash_tc_route_unequal_lengths(gen, sq, sk, d, causal):
     _check_tc(q, k, v, causal)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_flash_tc_route_reads_strided_views(gen, d):
     qkv = _bf16(gen, 2, 333, 12, d)               # (B, S, 3H, D)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
