@@ -60,9 +60,10 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    of centroid pairs and 1 ulp either side, duplicate centroids, points on
    centroids, an inf row and a NaN row) at d = 32 and d = 5: indices and
    scores bit for bit; at d = 96, 128, 192 and 1024 (either side of the
-   switch to the wide search at d > 96), bit for bit, each timed with both
-   search forms where they fit; and the exact rechecks per point (mean and
-   most) are logged at every shape.
+   switch to the wide search at d > 96) and at the embedding fit's n =
+   1,024, d = 2,048, k = 4, bit for bit, each timed with both search forms
+   where they fit; and the exact rechecks per point (mean and most) are
+   logged at every shape.
 3. Slice 1's path, the one-job app, at full width through
    ``run_mining_job``: K-Means on 1,048,576 points of 32 features with 64
    clusters, and DBSCAN on 65,536 points of 4 features, each against its
@@ -311,9 +312,10 @@ FRONTIER_FRACTION = 0.05
 FUSED_MASKED_FRACTION = 0.25
 FUSED_LARGE_K = dict(n=65536, k=1024)
 # Both K-Means kernels either side of the plan's choice of search form
-# (d > 96 is wide), and at a common embedding width: (n, k, d).
+# (d > 96 is wide), at a common embedding width, and at the embedding
+# fit's small n (its k = 4 takes the wide search's exact form): (n, k, d).
 SEARCH_WIDTHS = [(65536, 64, 96), (65536, 64, 128), (65536, 64, 192),
-                 (16384, 64, 1024)]
+                 (16384, 64, 1024), (1024, 4, 2048)]
 SEED = 0
 # Where every phase runs: the card.
 DEV = "cuda"
@@ -560,6 +562,32 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, the replays timed by CUDA events (the host's launch cost left
+    out).  The captured calls count as launches: time before a path's
+    counts are reset, or after they are read."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def host_us(torch, fn, reps: int = 50) -> float:
     """Host microseconds a call, the calls queued without a sync."""
     fn()
@@ -652,6 +680,14 @@ def near_ties(torch, d: int, seed: int):
     return x.contiguous().to(DEV), c.contiguous().to(DEV)
 
 
+def search_line(dops, n, k, d, device) -> dict:
+    """The wide search's plan at (n, k, d) and its grid on this card."""
+    p = dops.plan(n, k, d)
+    return dict(nt=p.nt, stages=p.stages, xres=p.xres,
+                search_blocks=p.search_blocks,
+                grid=dops.search_grid(p, dops.sm_count(device)))
+
+
 def recheck_line(dops, fn, what, n) -> dict:
     total, most = dops.rechecks(fn)
     log(f"rechecks {what}: {total / n!r} per point (mean), {most} at most")
@@ -702,6 +738,7 @@ def wide_rows(torch, mods) -> None:
                 times[form] = None
             finally:
                 dops.WIDE_D = wide_d
+        recheck_line(dops, dops.assign_clusters, f"assignment {what}", n)
         log(f"search forms {what}: bit-identical to the plain version; "
             f"assignment / fused step ms: " + ", ".join(
                 f"{form} " + ("does not fit" if t is None else
@@ -2119,23 +2156,43 @@ def examples_embedding(torch, mods, counters, card: str) -> tuple:
     err = float((dist - rdist).abs().max())
     rechecks = recheck_line(dops, dops.assign_clusters,
                             f"assignment n={n} d={d} k={k} (embedding)", n)
-    ms = time_ms(torch, lambda: dops.assign_clusters(emb, c0), reps=50)
+    # at this size the event mean over queued calls reads the host's rate
+    # of calls, so the row's times are device times of one call (a CUDA
+    # graph's replays), the kernel's and the library call's alike; the
+    # event means and the host's time a call are logged beside them
+    def assign():
+        return dops.assign_clusters(emb, c0)
+
+    def library():
+        return torch.cdist(emb, c0).argmin(1)
+
+    events = time_ms(torch, assign, reps=50)
+    ms = graph_ms(torch, assign)
+    host = host_us(torch, assign)
     plain_ms = time_ms(torch, lambda: dref.assign_clusters_ref(emb, c0),
                        reps=20)
-    lib = time_ms(torch, lambda: torch.cdist(emb, c0).argmin(1), reps=50)
+    lib_events = time_ms(torch, library, reps=50)
+    lib = graph_ms(torch, library)
+    lib_host = host_us(torch, library)
     b, by = bound(n * d * 4 + k * d * 4 + n * 8, 3 * 2.0 * n * k * d,
                   PEAK_TF32)
     b32, _ = bound(n * d * 4 + k * d * 4 + n * 8, 2.0 * n * k * d)
     log(f"assignment n={n} d={d} k={k} (wide, the embedding fit's shape): "
-        f"indices and distances bit-identical; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f}, cdist {lib:.4f}, bound {b:.4f} ({by})")
+        f"indices and distances bit-identical; device {ms!r} ms a call "
+        f"(the first wide form, on an H100 at 700 W: 0.6022), queued "
+        f"calls {events!r} ms, host {host!r} us a call; plain "
+        f"{plain_ms!r}; cdist device {lib!r} ms, queued {lib_events!r} ms, "
+        f"host {lib_host!r} us; bound {b!r} ({by})")
     row = dict(name="assign_clusters_d2048", route="cuda",
                source="src/repro_torch/csrc/distance.cu",
                replaces="src/repro/kernels/distance/distance.py:46",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, library_ms=lib, bound_fp32_ms=b32,
                library_call="cdist(x, c).argmin(1)",
-               shape=f"n={n} d={d} k={k} (wide)", rechecks=rechecks)
+               shape=f"n={n} d={d} k={k} (wide)", rechecks=rechecks,
+               events_ms=events, host_us=host,
+               library_events_ms=lib_events, library_host_us=lib_host,
+               search=search_line(dops, n, k, d, emb.device))
     # where the forward's time goes: one more forward, after the counts
     profile_window(torch, f"embedding forward ({docs} x {seq} tokens)",
                    lambda: ec.embed_documents(params, toks, cfg), top=8)
@@ -2643,9 +2700,9 @@ def pod_kmeans(torch, mods, counters, card: str) -> tuple:
     d = 128, k = 4,096, through ``clustering_step_for_dryrun`` on meshes of
     2 and 16 shards of the card, held to the plain step; and the kernels
     line's row of pass 1 at a 2-shard shard.  Returns (launches, row)."""
-    dist, kmeans, synth, fops, dref = (mods["dist"], mods["kmeans"],
-                                       mods["synth"], mods["fops"],
-                                       mods["dref"])
+    dist, kmeans, synth, fops, dref, dops = (
+        mods["dist"], mods["kmeans"], mods["synth"], mods["fops"],
+        mods["dref"], mods["dops"])
     n, d, k = POD["n"], POD["d"], POD["k"]
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -2681,7 +2738,8 @@ def pod_kmeans(torch, mods, counters, card: str) -> tuple:
           "pod (a): the steps on 2 and 16 shards differ")
     log(f"pod (a): step on 2 shards {walls[2]!r} s, on 16 shards "
         f"{walls[16]!r} s (host wall to a synchronise; a mesh repeating "
-        f"the card runs its shards on side streams), launches {launches}, "
+        f"the card runs its shards on side streams; the first wide form, "
+        f"on an H100 at 700 W: 6.730 / 8.199 s), launches {launches}, "
         f"results bitwise equal, peak {peak / 1e9!r} GB; card {card}")
 
     # row 2p: pass 1 over each 2-shard shard alone and pass 2, by events
@@ -2694,6 +2752,9 @@ def pod_kmeans(torch, mods, counters, card: str) -> tuple:
             x[a:b], c, mask[a:b], rows))
         pass1.append(ms)
         parts.append(out)
+    rechecks = recheck_line(dops, fops.fused_masked_assign_update,
+                            f"pod pass 1 over {bounds[-1][1] - bounds[-1][0]}"
+                            f" rows", bounds[-1][1] - bounds[-1][0])
     part = torch.cat([pt for _, pt in parts])
     pass2 = time_ms(torch, lambda: fops.reduce_partials(part, k, d), reps=5)
     sums, counts, inertia = fops.reduce_partials(part, k, d)
@@ -2773,8 +2834,11 @@ def pod_kmeans(torch, mods, counters, card: str) -> tuple:
     blocks0 = -(-n0 // rows)
     moved = n0 * d * 4 + n0 + 4 * n0 + 4 * blocks0 * stride + 4 * k * d
     b, by = bound(moved, 3 * 2.0 * n0 * k * d, PEAK_TF32)
-    log(f"pod (a) row 2p: pass 1 over {n0} rows ({blocks0} blocks) "
-        f"{pass1[0]!r} ms, bound {b!r} ms ({by}), plain {plain_ms!r} ms, "
+    search = search_line(dops, n0, k, d, x.device)
+    log(f"pod (a) row 2p: pass 1 over {n0} rows ({blocks0} blocks of "
+        f"sums; the search {search}) {pass1[0]!r} ms (the first wide form, "
+        f"on an H100 at 700 W: 6497.9), bound {b!r} ms ({by}), plain "
+        f"{plain_ms!r} ms, "
         f"library (cdist + one-hot, chunked) {lib_ms!r} ms; indices and "
         f"counts equal to the plain version, max |dsums| {err!r}")
 
@@ -2798,6 +2862,7 @@ def pod_kmeans(torch, mods, counters, card: str) -> tuple:
                shape=f"pass 1 over a 2-shard shard: n={n0} of {n} d={d} "
                      f"k={k}, {blocks0} blocks",
                launch_shape=list(fops.launch_shape(n, k, d)),
+               search=search, rechecks=rechecks,
                device_ms=dict(pass1=pass1, pass2=pass2))
     return launches, row
 
@@ -4117,6 +4182,7 @@ def main() -> int:
                         "library_call": row.get("library_call"),
                         "kernel_only_ms": row.get("kernel_only_ms"),
                         "launch_shape": row.get("launch_shape"),
+                        "search": row.get("search"),
                         "bound_fp32_ms": row.get("bound_fp32_ms"),
                         "block_error": row.get("block_error"),
                         "simt_ms": row.get("simt_ms"),
@@ -4128,6 +4194,9 @@ def main() -> int:
                             "ring_rechecks_per_pair"),
                         "device_ms": row.get("device_ms"),
                         "host_us": row.get("host_us"),
+                        "events_ms": row.get("events_ms"),
+                        "library_events_ms": row.get("library_events_ms"),
+                        "library_host_us": row.get("library_host_us"),
                         "shapes": row.get("shapes"),
                         "shape": row["shape"], "card": card}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

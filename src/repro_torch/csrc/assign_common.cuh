@@ -75,18 +75,50 @@
 //    fused step reads it again for each further range of sums (fused.cu).
 //
 // 5. Wide rows (more than 96 features: kernels/distance/ops.py:plan
-//    chooses).  Whole rows leave room for few points and few centroids at
-//    once, so search_tile_wide streams the products instead:
-//    a tile of 64 points against a chunk of up to 64 centroids, one
-//    32-column box of x and of the chunk's hi and lo images at a time
-//    through a ring of kWideStages (cp.async), the accumulators held across
-//    the boxes; x's boxes are read again for each further chunk (more
-//    than 64 centroids).  ||x||^2 is summed box by box in feature order;
-//    the recheck and the fused step's sums read their rows from device
-//    memory (x) and from the packed chunk.
+//    chooses), search_wide_kernel.  What bounds it on an H100 is the
+//    tensor cores: three TF32 products of 2 n k d operations at 495
+//    TFLOP/s (51.6 ms at the pod-scale cell's 2-shard shard, n 2^23, d 128,
+//    k 4,096), with x read once (n d 4 bytes).  What held the first wide
+//    form back (PERF.md's split of it): exact rechecks that read x and c
+//    feature by feature from device memory after every chunk (72% of the
+//    pod-scale shard's 6.5 s, 82% of the embedding fit's 0.60 ms); one
+//    128-thread block of 64 points per tile, on 31 of 132 SMs at the
+//    pod-scale shape; a block barrier and a drained pipe every 32
+//    features, x's A fragments rebuilt for every chunk of 64 centroids.
+//    What this one does about it:
+//    - a persistent grid of one block an SM (plan.search_blocks), each
+//      walking tiles of kWideRows = 128 points, apart from the fused
+//      step's partial-sum blocks;
+//    - two consumer warpgroups of 64 points share every box of the
+//      centroids' hi and lo images, which one producer warp streams by
+//      bulk copies (TMA) through a ring of `stages` box steps on
+//      mbarriers: no block barrier, the next boxes in flight while a
+//      warpgroup multiplies or picks;
+//    - x's tile stays in shared memory across all the chunks (xres: where
+//      there are several and it fits, d <= 192), loaded once a tile by a
+//      TMA tensor map (or cp.async) and turned once into its TF32 hi and
+//      lo images, so both operands come from shared memory (wgmma SS) and
+//      a box step is twelve wgmma and no other work; else x's box rides
+//      in each ring stage and its A fragments come from registers;
+//    - the exact rechecks are deferred to the end of the tile
+//      (WideRowState: about one a point at k = 4,096, not ~4.8), dealt
+//      over each warp's 32 lanes, and read x and c from device memory 16
+//      features at a time.
+//    For k <= 8 (one 8-column chunk, the embedding fit's k = 4) the exact
+//    form, exact_wide_kernel, scores every pair exactly instead, one lane a
+//    (point, centroid) pair: the plain scan's arithmetic, so its index and
+//    score bits by construction, with no window and no recheck.  Its
+//    bytes (x read once) would take 2.5 us at the embedding fit's shape;
+//    what bounds it there is each lane's chain of d dependent adds behind
+//    its loads: 54 us of device time a call on an H100, where the TF32
+//    form's 8 blocks of 128 points take 165 us (PERF.md).
+//    Tried and dropped (PERF.md): clusters of two blocks sharing each box
+//    by TMA multicast (the centroids' L2 reads halved; 25% slower, the two
+//    blocks held in step); a recheck keeping its next loads in flight.
 //
-// Variants tried on the card and dropped, none faster (PERF.md): both
-// groups' wgmma in flight at once (64 more registers a thread),
+// Variants of the staged search (items 1-4) tried on the card and
+// dropped, none faster (PERF.md): both groups' wgmma in flight at once (64
+// more registers a thread),
 // candidates dealt evenly over a quad's lanes, the norms computed under
 // the products.  What holds the kernels back is each warp's instruction
 // stream per point (A fragments, window, recheck, norm), not the tensor
@@ -147,16 +179,27 @@ __host__ __device__ inline size_t search_smem_bytes(int d, int tm, int nt,
          (size_t)slots * chunk_floats(d, nt) * sizeof(float);
 }
 
-// Wide rows: search_tile_wide.
-constexpr int kWideTM = 64;      // points per tile: one m-tile a warp
-constexpr int kWideStages = 4;   // ring of box steps
-// floats of one box step: x's box (64 rows) and the chunk's hi and lo
-// boxes (8 nt rows each), each a whole number of swizzle atoms
-__host__ __device__ inline int wide_step_floats(int nt) {
-  return (kWideTM + 16 * nt) * kBoxCols;
+// Wide rows: search_wide_kernel (the TF32 form) and exact_wide_kernel.
+constexpr int kWideTM = 64;        // the fused step's sums: rows of a tile
+constexpr int kWideWG = 2;         // consumer warpgroups of 64 points
+constexpr int kWideRows = 64 * kWideWG;               // points of a tile
+constexpr int kWideThreads = kThreads * kWideWG + 32;  // + a producer warp
+constexpr int kExactK = 8;         // k <= 8: the exact form
+constexpr int kExactThreads = 64;
+// floats of one ring stage: x's box (unless x's tile is resident) and the
+// chunk's hi and lo boxes, each a whole number of swizzle atoms
+__host__ __device__ inline int wide_stage_floats(int nt, int xres) {
+  return (xres ? 0 : kWideRows * kBoxCols) + 16 * nt * kBoxCols;
 }
-__host__ __device__ inline size_t wide_smem_bytes(int nt) {
-  return 1024 + (size_t)kWideStages * wide_step_floats(nt) * sizeof(float);
+// alignment slack, x's resident tile as TF32 hi and lo images, the ring,
+// the mbarriers (full and empty a stage, x full and x empty), and each
+// tile row's best key and recheck count; 0 for the exact form
+__host__ __device__ inline size_t wide_smem_bytes(int d, int nt, int stages,
+                                                  int xres) {
+  if (stages == 0) return 0;
+  return 1024 + (xres ? 2 * (size_t)boxes(d) * kWideRows * 128 : 0) +
+         (size_t)stages * wide_stage_floats(nt, xres) * sizeof(float) +
+         (2 * (size_t)stages + 2) * sizeof(uint64_t) + kWideRows * 12;
 }
 __host__ __device__ inline float window_alpha(int d) {
   return (float)(d + 64 * ksteps(d) + 12) * 0x1p-21f;
@@ -164,18 +207,24 @@ __host__ __device__ inline float window_alpha(int d) {
 
 // How a search is launched (kernels/distance/ops.py:plan chooses it).
 struct Plan {
-  int tm;               // points per tile, a multiple of 16, <= 128
+  int tm;               // points per tile, a multiple of 16, <= 128 (wide
+                        // rows: kWideTM, the fused step's sums)
   int resident;         // every chunk stays in shared memory
-  int tiles_per_block;
-  int wide;             // search_tile_wide (tm = kWideTM, not resident)
+  int tiles_per_block;  // (wide rows: of the fused step's sums)
+  int wide;             // d > WIDE_D: search_wide_kernel / exact_wide_kernel
+  int stages;           // wide rows: the TF32 form's ring; 0: the exact form
+  int xres;             // wide rows: x's tile stays in shared memory
+  int search_blocks;    // wide rows: the search's grid (ops.search_grid)
 };
 
 // 0, or cudaErrorInvalidValue for a plan the kernels cannot run.
-inline int check_plan(const Plan& p, int nt) {
-  const bool ok = p.tm >= 16 && p.tm <= 128 && p.tm % 16 == 0 &&
-                  (nt == 1 || nt == 2 || nt == 4 || nt == 8) &&
-                  p.tiles_per_block >= 1 &&
-                  (!p.wide || (p.tm == kWideTM && !p.resident));
+inline int check_plan(const Plan& p, int nt, int k) {
+  const bool ok =
+      p.tm >= 16 && p.tm <= 128 && p.tm % 16 == 0 &&
+      (nt == 1 || nt == 2 || nt == 4 || nt == 8) && p.tiles_per_block >= 1 &&
+      (!p.wide || (p.tm == kWideTM && !p.resident && p.search_blocks >= 1 &&
+                   (p.stages >= 2 || (p.stages == 0 && !p.xres &&
+                                      k <= kExactK))));
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -237,6 +286,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// bytes (a multiple of 16) global -> shared by the bulk copy engine, both
+// 16-byte aligned, completing on the mbarrier's transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// The mbarrier's phase also waits for this thread's cp.async copies so far
+// (its pending count is raised by one now and lowered when they land).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(bar)
+               : "memory");
+}
+
 // 16 bytes global -> shared (both 16-byte aligned); src_bytes 0 writes
 // zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
@@ -273,6 +345,19 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
   return r;
+}
+
+// v -> its TF32 hi (cvt.rna) in place, and lo = tf32(v - hi).
+__device__ __forceinline__ void split_tf32(float& v, float& lo) {
+  const float hi = __uint_as_float(to_tf32(v));
+  lo = __uint_as_float(to_tf32(__fsub_rn(v, hi)));
+  v = hi;
+}
+
+// A barrier over the wide search's consumer warpgroups alone (named
+// barrier 1; the producer warp never waits on it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads * kWideWG) : "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -366,6 +451,57 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[4 * kMaxNT],
   }
 }
 
+// As wgmma_tf32, with A (64 x 8, TF32) in shared memory too (descriptor
+// da, K-major, 128-byte swizzle, as smem_desc).
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4 * kMaxNT],
+                                            uint64_t da, uint64_t db,
+                                            int scale_d) {
+  if constexpr (NT == 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (NT == 2) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (NT == 4) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
 // D (64 x 64, fp32) (+)= A (64 x 8) . B (64 x 8)^T, both TF32 in shared
 // memory, K-major, 128-byte swizzle (descriptors as smem_desc); D's layout
 // as for wgmma_tf32<8>.  The neighbour kernels (neighbor.cu) keep their
@@ -373,21 +509,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[4 * kMaxNT],
 __device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[4 * kMaxNT],
                                                 uint64_t da, uint64_t db,
                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  wgmma_tf32_ss<8>(d, da, db, scale_d);
 }
 
 // (s, j) comes before (bs, bj): NaN first, then the smaller score, then
@@ -854,143 +976,648 @@ __device__ __forceinline__ void search_tile(const Centroids& cs,
   }
 }
 
-// --- the search over one tile of wide rows ----------------------------------
+// --- the wide search (d > WIDE_D) -------------------------------------------
+
+// The score's clamp in the fused step's inertia term (the reference's _BIG).
+constexpr float kScoreClamp = 3.4e38f;
+
+// What a wide search writes for point i besides its index: the score (0),
+// the squared distance max(score + ||x||^2, 0) (1), or the fused step's
+// inertia term max(min(score, 3.4e38) + ||x||^2, 0) (2); NaN stays NaN.
+__device__ __forceinline__ float wide_value(int mode, float s, float xn) {
+  if (mode == 0) return s;
+  const float t = __fadd_rn(mode == 2 && s > kScoreClamp ? kScoreClamp : s,
+                            xn);
+  return (t < 0.f) ? 0.f : t;
+}
 
 // The exact score of point x (a row of device memory) against the packed
-// exact row crow, in feature order (the staged version's padding adds +0,
-// which leaves the bits as they are).
-__device__ __forceinline__ float exact_score_global(const float* xr,
-                                                    const float* crow,
-                                                    float cn, int d) {
+// exact row crow, in feature order; vec: x's rows are 16-byte aligned
+// (crow always is), so 16 features are loaded at a time.  Out of line:
+// rechecks are rare (about one a point), and an inlined copy at each call
+// would crowd the main loop's instruction cache.  (Keeping the next 32
+// features' loads in flight made row 2p 30% slower: the callee's registers
+// are saved around every call.)
+__device__ __noinline__ float exact_score_global(const float* xr,
+                                                 const float* crow, float cn,
+                                                 int d, int vec) {
   float acc = 0.f;
-  for (int f = 0; f < d; ++f) {
+  int f = 0;
+  if (vec) {
+    for (; f + 16 <= d; f += 16) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = __ldg(reinterpret_cast<const float4*>(xr + f) + u);
+        b[u] = __ldg(reinterpret_cast<const float4*>(crow + f) + u);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc = dot4(acc, a[u], b[u]);
+    }
+  }
+#pragma unroll 8
+  for (; f < d; ++f) {
     acc = __fadd_rn(acc, __fmul_rn(__ldg(xr + f), __ldg(crow + f)));
   }
   return __fsub_rn(cn, __fmul_rn(2.f, acc));
 }
 
-// Every thread of the block calls it, with the same arguments.  Points
-// row0 ... row0 + kWideTM - 1 of x (n, d) against every chunk of cpack,
-// streamed one 32-column box at a time through `ring` (kWideStages steps
-// of wide_step_floats(NT), 1024-byte aligned); vec = 4 when d % 4 == 0 and
-// x is 16-byte aligned (16-byte copies), else 1.  emit and rc as for
-// search_tile.  Ends with a barrier: the ring is free again.
-template <int NT, class Emit>
-__device__ __forceinline__ void search_tile_wide(
-    const float* __restrict__ x, int n, int d, int row0,
-    const float* __restrict__ cpack, int k, float* ring, int vec,
-    Rechecks* rc, Emit emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int ks_n = ksteps(d), bx = boxes(d);
-  const int kc = 8 * NT, cf = chunk_floats(d, NT), dc = row_stride(d);
-  const int img = image_floats(d, NT), nkc = (k + kc - 1) / kc;
-  const int steps = nkc * bx, sf = wide_step_floats(NT);
-  const int valid_rows = min(kWideTM, n - row0);
-
-  // step s: box s % bx of x's rows and of chunk s / bx's hi and lo images
-  auto issue = [&](int s) {
-    float* st = ring + (s % kWideStages) * sf;
-    const int b = s % bx, f0 = b * kBoxCols;
-    if (vec == 4) {
-      for (int e = threadIdx.x; e < kWideTM * 8; e += kThreads) {
-        const int r = e >> 3, q = e & 7;
-        const bool in = r < valid_rows && f0 + 4 * q < d;
-        cp_async16(smem_u32(st + r * kBoxCols + ((q ^ (r & 7)) << 2)),
-                   in ? x + (size_t)(row0 + r) * d + f0 + 4 * q : x,
-                   in ? 16 : 0);
-      }
-    } else {
-      for (int e = threadIdx.x; e < kWideTM * kBoxCols; e += kThreads) {
-        const int r = e >> 5, c = e & 31;
-        const bool in = r < valid_rows && f0 + c < d;
-        cp_async4(smem_u32(st + swz(r, c, kWideTM)),
-                  in ? x + (size_t)(row0 + r) * d + f0 + c : x, in ? 4 : 0);
-      }
-    }
-    const float* src = cpack + (size_t)(s / bx) * cf + b * kc * kBoxCols;
-    float* dst = st + kWideTM * kBoxCols;
-    for (int e = threadIdx.x; e < kc * 8; e += kThreads) {
-      cp_async16(smem_u32(dst + 4 * e), src + 4 * e, 16);
-      cp_async16(smem_u32(dst + kc * kBoxCols + 4 * e), src + img + 4 * e,
-                 16);
-    }
-  };
-
-  // ||x||^2: lane l < 16 of warp w sums row 16 w + l, box by box
-  float own = 0.f;
-  RowState rs;
-  float acc[4 * kMaxNT];
-  const int r0 = 16 * warp;
-  // kWideStages - 1 groups ahead, empty past the last step, so that the
-  // wait below always leaves step s's group complete
-  for (int s = 0; s < kWideStages - 1; ++s) {
-    if (s < steps) issue(s);
-    cp_async_commit();
+// (score, index) as one 64-bit key whose unsigned order is precedes(): NaN
+// first (0), then the scores in order (-0 as +0), then the indices.
+__device__ __forceinline__ unsigned long long order_key(float s, int j) {
+  uint32_t u = 0;
+  if (s == s) {
+    const uint32_t b = __float_as_uint(s == 0.f ? 0.f : s);
+    u = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
   }
-  for (int s = 0; s < steps; ++s) {
-    if (s + kWideStages - 1 < steps) issue(s + kWideStages - 1);
-    cp_async_commit();
-    cp_async_wait<kWideStages - 1>();
-    fence_proxy_async();  // the copies are read by wgmma (the async proxy)
-    __syncthreads();
-    const float* st = ring + (s % kWideStages) * sf;
-    const int ch = s / bx, b = s % bx, kb = 4 * b, kn = min(4, ks_n - kb);
-    if (ch == 0 && lane < 16) {
-      for (int kk = 0; kk < kn; ++kk) {
-        float4 x0, x1;
-        staged_8(st, r0 + lane, kWideTM, kk, x0, x1);
-        own = dot4(dot4(own, x0, x0), x1, x1);
+  return ((unsigned long long)u << 32) | (uint32_t)j;
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  if (u == 0) return __uint_as_float(0x7fffffffu);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// The wide search's view of the two rows a thread holds (as RowState),
+// with the exact rechecks deferred to the end of the tile.  A chunk's
+// candidates (!(s~ > U + E), U the running upper end) are kept as (j, s~),
+// kDefer a row; one that finds the list full is rechecked at once.  At the
+// end, a kept candidate is rechecked only if it is still one against the
+// final U (U only falls, so that set holds every candidate RowState::pick
+// would have after the last chunk: the true minimum and all its ties); the
+// warp's rechecks are dealt over its 32 lanes, and each row's best (score,
+// index) is kept as order_key in shared memory (an integer atomicMin, so
+// the order does not matter).  The TF32 scores' running minimum is four or
+// five chunks deep at k = 4,096, so deferring cuts the exact rechecks from
+// ~4.8 a point to about one.
+constexpr int kDefer = 4;
+
+struct WideRowState {
+  float xn[2], xnorm[2], upper[2], bs[2];
+  int r0, bj[2], cands[2], held[2];
+  int hj[2 * kDefer];
+  float hs[2 * kDefer];
+
+  // rows r (tile row of h = 0) and r + 8, their ||x||^2 n0 and n1
+  __device__ void init(int r, float n0, float n1) {
+    r0 = r;
+    xn[0] = n0;
+    xn[1] = n1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xnorm[h] = sqrtf(xn[h]);
+      upper[h] = INFINITY;
+      bs[h] = INFINITY;
+      bj[h] = 0x7fffffff;
+      cands[h] = 0;
+      held[h] = 0;
+    }
+  }
+
+  __device__ __forceinline__ float window(int h, float4 win) const {
+    return (xnorm[h] * win.x < kGuard) ? fmaf(xnorm[h], win.z, win.w)
+                                       : INFINITY;
+  }
+
+  // exact(r, j): the exact score of tile row r against centroid j
+  template <class Exact>
+  __device__ __forceinline__ void recheck(int h, int j, Exact& exact) {
+    const float sc = exact(r0 + 8 * h, j);
+    if (h) {
+      if (precedes(sc, j, bs[1], bj[1])) {
+        bs[1] = sc;
+        bj[1] = j;
+      }
+      ++cands[1];
+    } else {
+      if (precedes(sc, j, bs[0], bj[0])) {
+        bs[0] = sc;
+        bj[0] = j;
+      }
+      ++cands[0];
+    }
+  }
+
+  // After the products of the fragment against a chunk (acc = cross~): as
+  // RowState::pick, but the candidates are kept (rechecked at once when
+  // the row's list is full).
+  template <int NT, class Exact>
+  __device__ __forceinline__ void pick(float (&acc)[4 * kMaxNT],
+                                       const float* cn, float4 win,
+                                       uint32_t live, int cbase, int t,
+                                       Exact exact) {
+    float lo[2] = {INFINITY, INFINITY}, e[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) e[h] = window(h, win);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 cn2 = *reinterpret_cast<const float2*>(cn + nt * 8 + 2 * t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float& a = acc[4 * nt + q];
+        a = fmaf(-2.f, a, (q & 1) ? cn2.y : cn2.x);
+        lo[q >> 1] = fminf(lo[q >> 1], a);
       }
     }
-    uint32_t ah[4][4], al[4][4];
-    const float* box = st + (r0 + g) * kBoxCols + t;
+    float cut[2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      a_fragments(box, kk, g, kk < kn, ah[kk], al[kk]);
+    for (int h = 0; h < 2; ++h) {
+      lo[h] = fminf(lo[h], __shfl_xor_sync(0xffffffffu, lo[h], 1));
+      lo[h] = fminf(lo[h], __shfl_xor_sync(0xffffffffu, lo[h], 2));
+      upper[h] = fminf(upper[h], lo[h] + e[h]);
+      cut[h] = upper[h] + e[h];
     }
-    const uint32_t hi_s = smem_u32(st + kWideTM * kBoxCols);
-    const uint32_t lo_s = hi_s + kc * 128;
-    fence_regs(acc);
-    wgmma_fence();
+    uint32_t pending = 0;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dh = smem_desc(hi_s + kk * 32);
-      wgmma_tf32<NT>(acc, al[kk], dh, kb + kk > 0);
-      wgmma_tf32<NT>(acc, ah[kk], smem_desc(lo_s + kk * 32), 1);
-      wgmma_tf32<NT>(acc, ah[kk], dh, 1);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      fence_regs(ah[kk]);
-      fence_regs(al[kk]);
+      for (int q = 0; q < 4; ++q) {
+        if (!(acc[4 * nt + q] > cut[q >> 1])) pending |= 1u << (nt * 4 + q);
+      }
     }
-    if (b == bx - 1) {  // the chunk's products are done
-      if (ch == 0) {
-        rs.init(__shfl_sync(0xffffffffu, own, g),
+    pending &= live;
+    while (pending) {
+      const int b = __ffs(pending) - 1;
+      pending &= pending - 1;
+      const int h = (b >> 1) & 1, j = cbase + (b >> 2) * 8 + 2 * t + (b & 1);
+      if (held[h] == kDefer) {
+        recheck(h, j, exact);
+        continue;
+      }
+      float s = acc[0];  // acc[b], by selects (a dynamic index spills)
+#pragma unroll
+      for (int i = 1; i < 4 * NT; ++i) s = (b == i) ? acc[i] : s;
+      const int slot = h * kDefer + held[h];
+#pragma unroll
+      for (int i = 0; i < 2 * kDefer; ++i) {
+        if (i == slot) {
+          hj[i] = j;
+          hs[i] = s;
+        }
+      }
+      if (h) ++held[1]; else ++held[0];
+    }
+  }
+
+  // The kept candidates still within the final window (win_of(j): the
+  // window terms of centroid j's chunk) rechecked, dealt over the warp's
+  // lanes; best and count: the warp's 16 rows' keys (+inf, ~0) and recheck
+  // counts (0) in shared memory, row r0 + 8 h at best[(r0 & 15) + 8 h] (the
+  // warp's rows are 16-aligned).  Then the quad's lane t = 0 emits row r0
+  // + 8 h (if below valid_rows) and counts its rechecks.
+  template <class WinOf, class Exact, class Emit>
+  __device__ __forceinline__ void finish(int valid_rows, int t,
+                                         Rechecks* rc, WinOf win_of,
+                                         Exact exact, Emit& emit,
+                                         unsigned long long* best,
+                                         int* count) {
+    const int lane = threadIdx.x & 31, wr = r0 & ~15;
+    uint32_t m = 0;
+#pragma unroll
+    for (int i = 0; i < 2 * kDefer; ++i) {
+      const int h = i / kDefer;
+      if (i % kDefer < held[h]) {
+        const float cut = upper[h] + window(h, win_of(hj[i]));
+        if (!(hs[i] > cut)) m |= 1u << i;
+      }
+    }
+    // the warp's rechecks in lane order: lane L's are items excl ... incl - 1
+    const int cnt = __popc(m);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int excl = incl - cnt;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    for (int base = 0; base < total; base += 32) {
+      const int item = base + lane;
+      int o = 0;  // the owner: the first lane whose incl exceeds item
+#pragma unroll
+      for (int step = 16; step; step >>= 1) {
+        if (__shfl_sync(0xffffffffu, incl, o + step - 1) <= item) o += step;
+      }
+      uint32_t om = __shfl_sync(0xffffffffu, m, o);
+      const int k = item - __shfl_sync(0xffffffffu, excl, o);
+      for (int q = 0; q < k && om; ++q) om &= om - 1;  // its k-th slot
+      const int slot = om ? __ffs(om) - 1 : 0;
+      int j = 0;
+#pragma unroll
+      for (int i = 0; i < 2 * kDefer; ++i) {
+        const int v = __shfl_sync(0xffffffffu, hj[i], o);
+        if (i == slot) j = v;
+      }
+      if (item < total) {
+        const int row = (o >> 2) + 8 * (slot / kDefer);  // of the warp's 16
+        atomicMin(best + row, order_key(exact(wr + row, j), j));
+        atomicAdd(count + row, 1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the rechecks made along the way
+      const int row = (r0 & 15) + 8 * h;
+      if (cands[h]) {
+        atomicMin(best + row, order_key(bs[h], bj[h]));
+        atomicAdd(count + row, cands[h]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = (r0 & 15) + 8 * h;
+      if (t == 0 && r0 + 8 * h < valid_rows) {
+        const unsigned long long key = best[row];
+        emit(r0 + 8 * h, (int)(uint32_t)key, key_score(key), xn[h]);
+        if (rc != nullptr) {
+          rc->total += (unsigned long long)count[row];
+          rc->most = max(rc->most, (unsigned long long)count[row]);
+        }
+      }
+    }
+    __syncwarp();  // every emit has read best[] and count[] before a reset
+  }
+};
+
+// How the producer brings x in: a TMA tensor map (boxes {32, kWideRows}),
+// 16-byte cp.async, or 4-byte cp.async (wide_x_copy chooses).
+enum WideCopy { kCopy4 = 0, kCopy16 = 1, kCopyTma = 2 };
+
+// Features 32 b ... 32 b + 31 of rows row0 ... row0 + kWideRows - 1 of x
+// into the swizzled box at dst by this producer lane's cp.async copies
+// (zeros past n and d).
+__device__ __forceinline__ void wide_x_box_cp(const float* x, int n, int d,
+                                              int row0, int b, int how,
+                                              float* dst, int lane) {
+  const int f0 = b * kBoxCols;
+  if (how == kCopy16) {
+    for (int e = lane; e < kWideRows * 8; e += 32) {
+      const int r = e >> 3, q = e & 7;
+      const bool in = row0 + r < n && f0 + 4 * q < d;
+      cp_async16(smem_u32(dst + r * kBoxCols + ((q ^ (r & 7)) << 2)),
+                 in ? x + (size_t)(row0 + r) * d + f0 + 4 * q : x,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = lane; e < kWideRows * kBoxCols; e += 32) {
+      const int r = e >> 5, c = e & 31;
+      const bool in = row0 + r < n && f0 + c < d;
+      cp_async4(smem_u32(dst + swz(r, c, kWideRows)),
+                in ? x + (size_t)(row0 + r) * d + f0 + c : x, in ? 4 : 0);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void search_wide_consumer(
+    const float* __restrict__ x, const float* __restrict__ cpack, int n,
+    int k, int d, int stages, int xres, int how, int mode,
+    int* __restrict__ idx_out, float* __restrict__ val_out,
+    unsigned long long* __restrict__ stats, float* xtile, const float* ring,
+    uint64_t* full, uint64_t* empty, uint64_t* xfull, uint64_t* xempty);
+
+// Points x (n, d) against every chunk of 8 NT centroids of cpack; point i
+// gets idx_out[i] and val_out[i] = wide_value(mode, ...).  One producer
+// warp and kWideWG consumer warpgroups; a persistent loop over tiles of
+// kWideRows points (tile blockIdx.x, then every gridDim.x-th).
+//
+// The producer fills ring stage q % stages with step q of the sequence
+// (tile, chunk ch, box b): box b of chunk ch's hi and lo images by bulk
+// copies, and x's box b unless x's tile is resident (xres), on full[q %
+// stages]; every consumer warp releases the stage on empty[] once its
+// products are read.  With xres, the producer loads the next tile into x's
+// buffer once the consumers release the last one (xempty) and after it has
+// refilled the ring for that tile (the centroids do not wait for x), on
+// xfull.
+//
+// A consumer warpgroup takes 64 points of the tile (warp w rows 16 w ...
+// 16 w + 15 of them): for each chunk, each box's A fragments (x's TF32 hi
+// and lo from shared memory) against the stage's images, twelve wgmma
+// m64nNk8, then RowState::pick over the chunk (the window and the exact
+// rechecks, whose rows come from x's resident tile or device memory).
+template <int NT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+search_wide_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const float* __restrict__ x,
+                   const float* __restrict__ cpack, int n, int k, int d,
+                   int stages, int xres, int how, int mode,
+                   int* __restrict__ idx_out, float* __restrict__ val_out,
+                   unsigned long long* __restrict__ stats) {
+  extern __shared__ unsigned char smem_raw[];
+  float* base = aligned_smem(smem_raw);
+  const int bx = boxes(d);
+  const int kc = 8 * NT, cf = chunk_floats(d, NT), img = image_floats(d, NT);
+  const int nkc = (k + kc - 1) / kc;
+  const int tiles = (n + kWideRows - 1) / kWideRows;
+  const int sf = wide_stage_floats(NT, xres);
+  // xres: x's tile (bx boxes of kWideRows rows), loaded as fp32 and made
+  // its TF32 hi image in place, then its lo image
+  float* xtile = base;
+  float* ring = base + (xres ? 2 * (size_t)bx * kWideRows * kBoxCols : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * sf);
+  uint64_t* empty = full + stages;
+  uint64_t* xfull = empty + stages;
+  uint64_t* xempty = xfull + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 4 * kWideWG);
+    }
+    mbar_init(smem_u32(xfull), 1);
+    mbar_init(smem_u32(xempty), 4 * kWideWG);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kWideWG) {  // the producer
+    const uint32_t cbytes = 2u * kc * 128;
+    int q = 0, it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+      const int row0 = tile * kWideRows, steps = nkc * bx;
+      const int xat = min(stages, steps);  // x after the tile's first steps
+      for (int s = 0; s < steps; ++s, ++q) {
+        const int st = q % stages, ch = s / bx, b = s % bx;
+        mbar_wait(smem_u32(empty + st), ((q / stages) & 1) ^ 1);
+        float* dst = ring + (size_t)st * sf;
+        const uint32_t bar = smem_u32(full + st);
+        if (!xres && how != kCopyTma) {
+          wide_x_box_cp(x, n, d, row0, b, how, dst, lane);
+          cp_async_mbar_arrive(bar);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          const bool xt = !xres && how == kCopyTma;
+          mbar_expect_tx(bar, cbytes + (xt ? kWideRows * 128u : 0u));
+          if (xt) tma_load_2d(smem_u32(dst), &xmap, bar, b * kBoxCols, row0);
+          float* cdst = dst + (xres ? 0 : kWideRows * kBoxCols);
+          const float* src = cpack + (size_t)ch * cf + b * kc * kBoxCols;
+          bulk_load(smem_u32(cdst), src, kc * 128u, bar);
+          bulk_load(smem_u32(cdst + kc * kBoxCols), src + img, kc * 128u,
+                    bar);
+        }
+        if (xres && s == xat - 1) {  // the tile's x, once the last is free
+          mbar_wait(smem_u32(xempty), (it & 1) ^ 1);
+          const uint32_t xb = smem_u32(xfull);
+          if (how != kCopyTma) {
+            for (int bb = 0; bb < bx; ++bb) {
+              wide_x_box_cp(x, n, d, row0, bb, how,
+                            xtile + (size_t)bb * kWideRows * kBoxCols, lane);
+            }
+            cp_async_mbar_arrive(xb);
+          }
+          __syncwarp();
+          if (lane == 0) {
+            if (how == kCopyTma) {
+              mbar_expect_tx(xb, (uint32_t)bx * kWideRows * 128u);
+              for (int bb = 0; bb < bx; ++bb) {
+                tma_load_2d(
+                    smem_u32(xtile + (size_t)bb * kWideRows * kBoxCols),
+                    &xmap, xb, bb * kBoxCols, row0);
+              }
+            } else {
+              mbar_arrive(xb);
+            }
+          }
+        }
+      }
+    }
+  } else {  // a consumer warpgroup
+    search_wide_consumer<NT>(x, cpack, n, k, d, stages, xres, how, mode,
+                             idx_out, val_out, stats, xtile, ring, full,
+                             empty, xfull, xempty);
+  }
+}
+
+// The consumer warpgroups of search_wide_kernel (see there).
+template <int NT>
+__device__ __forceinline__ void search_wide_consumer(
+    const float* __restrict__ x, const float* __restrict__ cpack, int n,
+    int k, int d, int stages, int xres, int how, int mode,
+    int* __restrict__ idx_out, float* __restrict__ val_out,
+    unsigned long long* __restrict__ stats, float* xtile, const float* ring,
+    uint64_t* full, uint64_t* empty, uint64_t* xfull, uint64_t* xempty) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bx = boxes(d), ks_n = ksteps(d);
+  const int kc = 8 * NT, cf = chunk_floats(d, NT), img = image_floats(d, NT);
+  const int dc = row_stride(d), nkc = (k + kc - 1) / kc;
+  const int sf = wide_stage_floats(NT, xres);
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's rows
+  Rechecks rc;
+  float acc[4 * kMaxNT];
+  const int tiles = (n + kWideRows - 1) / kWideRows;
+  const size_t xfloats = (size_t)bx * kWideRows * kBoxCols;
+  float* xlo = xtile + xfloats;
+  const uint32_t xhi_s = smem_u32(xtile), xlo_s = smem_u32(xlo);
+  const uint32_t arow = (uint32_t)(warp >> 2) * 64 * 128;  // the group's A
+  unsigned long long* best =
+      reinterpret_cast<unsigned long long*>(full + 2 * stages + 2) + rw;
+  int* count = reinterpret_cast<int*>(best - rw + kWideRows) + rw;
+  int q = 0, it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    const int row0 = tile * kWideRows;
+    const int valid = min(kWideRows, n - row0);
+    // ||x||^2: lane l < 16 sums row rw + l in feature order
+    float own = 0.f;
+    WideRowState rs;
+    if (lane < 16) {  // the warp's rows: no best yet
+      best[lane] = ~0ull;
+      count[lane] = 0;
+    }
+    __syncwarp();
+    if (xres) {
+      mbar_wait(smem_u32(xfull), it & 1);
+      if (lane < 16) own = staged_norm(xtile, rw + lane, kWideRows, ks_n);
+      rs.init(rw + g, __shfl_sync(0xffffffffu, own, g),
+              __shfl_sync(0xffffffffu, own, g + 8));
+      // every fp32 read is done: the tile becomes its TF32 hi image in
+      // place and its lo image beside it, read by the tensor cores
+      consumers_sync();
+      for (size_t e = 4 * (size_t)threadIdx.x; e < xfloats;
+           e += 4 * kThreads * kWideWG) {
+        float4 v = *reinterpret_cast<const float4*>(xtile + e);
+        float4 lo;
+        split_tf32(v.x, lo.x);
+        split_tf32(v.y, lo.y);
+        split_tf32(v.z, lo.z);
+        split_tf32(v.w, lo.w);
+        *reinterpret_cast<float4*>(xtile + e) = v;
+        *reinterpret_cast<float4*>(xlo + e) = lo;
+      }
+      fence_proxy_async();
+      consumers_sync();
+    }
+    // exact(r, j): the exact score of tile row r against centroid j, from
+    // x in device memory
+    const auto exact = [&](int r, int j) {
+      const int ch = j / kc, jj = j - ch * kc;
+      const float* rows = cpack + (size_t)ch * cf + 2 * img;
+      return exact_score_global(x + (size_t)(row0 + r) * d, rows + jj * dc,
+                                __ldg(rows + kc * dc + jj), d,
+                                how != kCopy4);
+    };
+    const auto emit = [&](int r, int j, float s, float xn) {
+      idx_out[row0 + r] = j;
+      val_out[row0 + r] = wide_value(mode, s, xn);
+    };
+    for (int ch = 0; ch < nkc; ++ch) {
+      for (int b = 0; b < bx; ++b, ++q) {
+        const int st = q % stages;
+        mbar_wait(smem_u32(full + st), (q / stages) & 1);
+        const float* stg = ring + (size_t)st * sf;
+        const int kb = 4 * b, kn = min(4, ks_n - kb);
+        const uint32_t hi_s =
+            smem_u32(stg + (xres ? 0 : kWideRows * kBoxCols));
+        const uint32_t lo_s = hi_s + kc * 128;
+        if (xres) {  // A from x's images: box b, the group's 64 rows
+          const uint32_t ao = (uint32_t)b * kWideRows * 128 + arow;
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dh = smem_desc(hi_s + kk * 32);
+            const uint64_t ah = smem_desc(xhi_s + ao + kk * 32);
+            wgmma_tf32_ss<NT>(acc, smem_desc(xlo_s + ao + kk * 32), dh,
+                              kb + kk > 0);
+            wgmma_tf32_ss<NT>(acc, ah, smem_desc(lo_s + kk * 32), 1);
+            wgmma_tf32_ss<NT>(acc, ah, dh, 1);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(acc);
+        } else {  // A from registers: the stage's box of x
+          if (ch == 0 && lane < 16) {
+            for (int kk = 0; kk < kn; ++kk) {
+              float4 x0, x1;
+              staged_8(stg, rw + lane, kWideRows, kk, x0, x1);
+              own = dot4(dot4(own, x0, x0), x1, x1);
+            }
+          }
+          uint32_t ah[4][4], al[4][4];
+          const float* box = stg + (rw + g) * kBoxCols + t;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            a_fragments(box, kk, g, kk < kn, ah[kk], al[kk]);
+          }
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dh = smem_desc(hi_s + kk * 32);
+            wgmma_tf32<NT>(acc, al[kk], dh, kb + kk > 0);
+            wgmma_tf32<NT>(acc, ah[kk], smem_desc(lo_s + kk * 32), 1);
+            wgmma_tf32<NT>(acc, ah[kk], dh, 1);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(ah[kk]);
+            fence_regs(al[kk]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(smem_u32(empty + st));
+          // after the tile's last products, x's images are free again
+          if (xres && ch == nkc - 1 && b == bx - 1) {
+            mbar_arrive(smem_u32(xempty));
+          }
+        }
+      }
+      if (!xres && ch == 0) {
+        rs.init(rw + g, __shfl_sync(0xffffffffu, own, g),
                 __shfl_sync(0xffffffffu, own, g + 8));
       }
-      const float* rows = cpack + (size_t)ch * cf + 2 * img;
-      const float* cn = rows + kc * dc;
+      const float* cn = cpack + (size_t)ch * cf + 2 * img + kc * dc;
       const float4 win = *reinterpret_cast<const float4*>(cn + kc);
       const int cbase = ch * kc;
       // rows past n hold zeros and are never emitted: recheck nothing
       const uint32_t live =
-          r0 + g < valid_rows ? live_columns<NT>(cbase, k, t) : 0u;
+          rw + g < valid ? live_columns<NT>(cbase, k, t) : 0u;
       const uint32_t live8 =
-          r0 + g + 8 < valid_rows ? live : (live & 0x33333333u);
-      rs.template pick<NT>(acc, cn, win, live8, cbase, t,
-                           [&](int h, int jj) {
-        return exact_score_global(x + (size_t)(row0 + r0 + g + 8 * h) * d,
-                                  rows + jj * dc, __ldg(cn + jj), d);
-      });
+          rw + g + 8 < valid ? live : (live & 0x33333333u);
+      rs.template pick<NT>(acc, cn, win, live8, cbase, t, exact);
     }
-    __syncthreads();  // every warp is done with step s's stage
+    rs.finish(valid, t, &rc,
+              [&](int j) {
+                return *reinterpret_cast<const float4*>(
+                    cpack + (size_t)(j / kc) * cf + 2 * img + kc * dc + kc);
+              },
+              exact, emit, best, count);
   }
-  rs.finish(r0 + g, valid_rows, t, rc, emit);
+  rc.flush(stats);
+}
+
+// The exact form (k <= kExactK <= KP, KP a power of 2): lane j of each
+// group of KP lanes scores point r against centroid j in the plain scan's
+// arithmetic (products and sums rounded on their own, in feature order,
+// ||c_j||^2 and ||x_r||^2 likewise), and the group keeps the first minimum
+// (NaN first) by shuffles.  The stats count the n k exact scores as
+// rechecks.
+template <int KP>
+__global__ void __launch_bounds__(kExactThreads)
+exact_wide_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                  int n, int k, int d, int vec, int mode,
+                  int* __restrict__ idx_out, float* __restrict__ val_out,
+                  unsigned long long* __restrict__ stats) {
+  const int j = threadIdx.x % KP;
+  const long long r =
+      (long long)blockIdx.x * (kExactThreads / KP) + threadIdx.x / KP;
+  const bool row_ok = r < n;
+  const float* xr = x + (size_t)(row_ok ? r : n - 1) * d;
+  const float* cr = c + (size_t)min(j, k - 1) * d;
+  float acc = 0.f, cn = 0.f, xn = 0.f;
+  int f = 0;
+  if (vec) {
+    for (; f + 16 <= d; f += 16) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = __ldg(reinterpret_cast<const float4*>(xr + f) + u);
+        b[u] = __ldg(reinterpret_cast<const float4*>(cr + f) + u);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc = dot4(acc, a[u], b[u]);
+        cn = dot4(cn, b[u], b[u]);
+        xn = dot4(xn, a[u], a[u]);
+      }
+    }
+  }
+#pragma unroll 4
+  for (; f < d; ++f) {
+    const float a = __ldg(xr + f), b = __ldg(cr + f);
+    acc = __fadd_rn(acc, __fmul_rn(a, b));
+    cn = __fadd_rn(cn, __fmul_rn(b, b));
+    xn = __fadd_rn(xn, __fmul_rn(a, a));
+  }
+  float s = __fsub_rn(cn, __fmul_rn(2.f, acc));
+  int jj = j;
+  if (j >= k) {  // no centroid: never the minimum
+    s = INFINITY;
+    jj = 0x7fffffff;
+  }
+#pragma unroll
+  for (int o = 1; o < KP; o <<= 1) {
+    const float os = __shfl_xor_sync(0xffffffffu, s, o);
+    const int oj = __shfl_xor_sync(0xffffffffu, jj, o);
+    if (precedes(os, oj, s, jj)) {
+      s = os;
+      jj = oj;
+    }
+  }
+  if (j == 0 && row_ok) {
+    idx_out[r] = jj;
+    val_out[r] = wide_value(mode, s, xn);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {  // every pair: n k in all
+    stats[0] = (unsigned long long)n * k;
+    stats[1] = (unsigned long long)k;
+  }
 }
 
 // --- host -------------------------------------------------------------------
@@ -1025,10 +1652,16 @@ inline int& last_encode_result() {
   return r;
 }
 
-// search_tile_wide copies x by 16 bytes when its rows are whole 16-byte
-// pieces and it is 16-byte aligned, else by 4.
-inline int wide_copy_width(const void* x, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? 4 : 1;
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// How the wide search's producer copies x: TMA when its rows are whole
+// 128-byte boxes and it is 16-byte aligned, else 16-byte cp.async when
+// they are whole 16-byte pieces, else 4-byte.
+inline int wide_x_copy(const void* x, int d) {
+  if (d % kBoxCols == 0 && aligned16(x)) return kCopyTma;
+  return d % 4 == 0 && aligned16(x) ? kCopy16 : kCopy4;
 }
 
 // TMA takes x when its rows are whole 128-byte boxes and it is 16-byte
@@ -1066,6 +1699,72 @@ inline const char* error_string(int err) {
     return buf;
   }
   return cudaGetErrorString((cudaError_t)err);
+}
+
+
+template <int NT>
+int launch_search_wide(const void* x, int n, int k, int d, const Plan& p,
+                       int mode, const void* cpack, void* idx, void* val,
+                       void* stats, cudaStream_t s);
+
+// The wide search of x (n, d) against c (k, d) on stream s (ops.plan's
+// wide plan p, nt centroid groups a chunk): the exact form when
+// p.stages == 0, else pack_centroids into cpack and search_wide_kernel.
+// Writes idx (n,) and val (n,) = wide_value(mode, ...); stats gets the
+// rechecks.  Returns 0 or an error code for error_string.
+inline int launch_wide(const void* x, const void* c, int n, int k, int d,
+                       int nt, const Plan& p, int mode, void* cpack,
+                       void* idx, void* val, void* stats, cudaStream_t s) {
+  if (p.stages == 0) {
+    const int kp = k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8;
+    if ((long long)p.search_blocks * (kExactThreads / kp) < n) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int vec = d % 4 == 0 && aligned16(x) && aligned16(c);
+    const auto kernel = kp == 1   ? exact_wide_kernel<1>
+                        : kp == 2 ? exact_wide_kernel<2>
+                        : kp == 4 ? exact_wide_kernel<4>
+                                  : exact_wide_kernel<8>;
+    kernel<<<p.search_blocks, kExactThreads, 0, s>>>(
+        (const float*)x, (const float*)c, n, k, d, vec, mode, (int*)idx,
+        (float*)val, (unsigned long long*)stats);
+    return (int)cudaGetLastError();
+  }
+  pack_centroids<<<(k + 8 * nt - 1) / (8 * nt), 256, 0, s>>>(
+      (const float*)c, k, d, nt, (float*)cpack, (unsigned long long*)stats);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  switch (nt) {
+    case 1: return launch_search_wide<1>(x, n, k, d, p, mode, cpack, idx,
+                                         val, stats, s);
+    case 2: return launch_search_wide<2>(x, n, k, d, p, mode, cpack, idx,
+                                         val, stats, s);
+    case 4: return launch_search_wide<4>(x, n, k, d, p, mode, cpack, idx,
+                                         val, stats, s);
+    default: return launch_search_wide<8>(x, n, k, d, p, mode, cpack, idx,
+                                          val, stats, s);
+  }
+}
+
+template <int NT>
+int launch_search_wide(const void* x, int n, int k, int d, const Plan& p,
+                       int mode, const void* cpack, void* idx, void* val,
+                       void* stats, cudaStream_t s) {
+  const int how = wide_x_copy(x, d);
+  CUtensorMap xmap{};
+  if (how == kCopyTma) {
+    const int err = encode_x(&xmap, x, n, d, kWideRows);
+    if (err) return err;
+  }
+  const size_t smem = wide_smem_bytes(d, NT, p.stages, p.xres);
+  cudaError_t e = cudaFuncSetAttribute(
+      search_wide_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  search_wide_kernel<NT><<<p.search_blocks, kWideThreads, smem, s>>>(
+      xmap, (const float*)x, (const float*)cpack, n, k, d, p.stages, p.xres,
+      how, mode, (int*)idx, (float*)val, (unsigned long long*)stats);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro_assign

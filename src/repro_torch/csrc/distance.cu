@@ -36,8 +36,12 @@
 // - pack_centroids runs first, one block per chunk of centroids.
 // - One block owns tiles_per_block tiles of tm points; four warps each take
 //   16-row m-tiles; every grid dimension is a function of (n, k, d).
-// - Wide rows (the plan's choice) take assign_wide_kernel: 64-point
-//   tiles, the products streamed box by box (assign_common.cuh, item 5).
+// - Wide rows (d > 96, the plan's choice) take the wide search
+//   (assign_common.cuh, item 5): search_wide_kernel, a persistent grid of
+//   one block an SM, two warpgroups of 64 points sharing the centroids'
+//   boxes that a producer warp streams by TMA, x's tile resident across
+//   the chunks, the exact rechecks deferred to the end of the tile; or, for
+//   k <= 8, exact_wide_kernel, every pair scored in the exact arithmetic.
 // - The recheck counts (in all, and the most for one point) go to two
 //   scratch words by one integer atomic pair a warp, at the end
 //   (kernels/distance/ops.py:rechecks reads them).
@@ -100,44 +104,13 @@ assign_kernel(const __grid_constant__ CUtensorMap xmap,
   rc.flush(stats);
 }
 
-// Wide rows: tiles of kWideTM points, the products streamed
-// box by box (search_tile_wide); no TMA map.
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-assign_wide_kernel(const __grid_constant__ CUtensorMap xmap,
-                   const float* __restrict__ x,
-                   const float* __restrict__ cpack, int n, int k, int d,
-                   const Plan p, int vec, int with_dists,
-                   int* __restrict__ idx_out, float* __restrict__ out,
-                   unsigned long long* __restrict__ stats) {
-  extern __shared__ unsigned char smem_raw[];
-  float* ring = aligned_smem(smem_raw);
-  const int tiles = (n + kWideTM - 1) / kWideTM;
-  const int tile0 = blockIdx.x * p.tiles_per_block;
-  const int ntiles = min(p.tiles_per_block, tiles - tile0);
-  Rechecks rc;
-  for (int q = 0; q < ntiles; ++q) {
-    const int row0 = (tile0 + q) * kWideTM;
-    search_tile_wide<NT>(x, n, d, row0, cpack, k, ring, vec, &rc,
-                         [&](int r, int j, float s, float xn) {
-                           idx_out[row0 + r] = j;
-                           if (with_dists) {
-                             const float t = __fadd_rn(s, xn);
-                             s = (t < 0.f) ? 0.f : t;  // NaN stays NaN
-                           }
-                           out[row0 + r] = s;
-                         });
-  }
-  rc.flush(stats);
-}
-
 // The kernel for nt 8-centroid groups a chunk (1, 2, 4 or 8).
-decltype(&assign_kernel<8>) assign_kernel_for(int nt, int wide) {
+decltype(&assign_kernel<8>) assign_kernel_for(int nt) {
   switch (nt) {
-    case 1: return wide ? assign_wide_kernel<1> : assign_kernel<1>;
-    case 2: return wide ? assign_wide_kernel<2> : assign_kernel<2>;
-    case 4: return wide ? assign_wide_kernel<4> : assign_kernel<4>;
-    default: return wide ? assign_wide_kernel<8> : assign_kernel<8>;
+    case 1: return assign_kernel<1>;
+    case 2: return assign_kernel<2>;
+    case 4: return assign_kernel<4>;
+    default: return assign_kernel<8>;
   }
 }
 
@@ -145,43 +118,51 @@ decltype(&assign_kernel<8>) assign_kernel_for(int nt, int wide) {
 
 extern "C" {
 
-// Shared memory one block needs (bytes).
-size_t assign_smem_bytes(int d, int tm, int nt, int slots, int wide) {
-  return (wide ? wide_smem_bytes(nt) : search_smem_bytes(d, tm, nt, slots)) +
-         kStages * sizeof(uint64_t);
+// Shared memory one block needs (bytes): the staged search's, or for wide
+// rows the wide search's (assign_common.cuh, wide_smem_bytes).
+size_t assign_smem_bytes(int d, int tm, int nt, int slots, int wide,
+                         int stages, int xres) {
+  return wide ? wide_smem_bytes(d, nt, stages, xres)
+              : search_smem_bytes(d, tm, nt, slots) +
+                    kStages * sizeof(uint64_t);
 }
 
 // x: (n, d) f32, c: (k, d) f32, both contiguous on the current device,
-// n >= 1.  cpack: centroid_pack_floats(k, d, nt) f32 scratch; stats: 2 u64
-// scratch (rechecks in all, most for one point).  tm (a multiple of 16,
-// at most 128), nt (1, 2, 4 or 8), resident, tiles_per_block and wide
-// (tm = kWideTM, not resident) come from the wrapper's plan.
-// Writes idx (n,) i32 and out (n,) f32 (the score, or the squared distance
-// when with_dists) on `stream`.  Returns 0 or an error
-// code for kernel_error_string; does not synchronise.
+// n >= 1.  cpack: centroid_pack_floats(k, d, nt) f32 scratch (unused by
+// the exact form); stats: 2 u64 scratch (rechecks in all, most for one
+// point).  tm (a multiple of 16, at most 128), nt (1, 2, 4 or 8),
+// resident, tiles_per_block, wide, and for wide rows stages (0: the exact
+// form), xres and search_blocks come from the wrapper's plan.  Writes idx
+// (n,) i32 and out (n,) f32 (the score, or the squared distance when
+// with_dists) on `stream`.  Returns 0 or an error code for
+// kernel_error_string; does not synchronise.
 int assign_clusters(const void* x, const void* c, int n, int k, int d, int tm,
                     int nt, int resident, int tiles_per_block, int wide,
-                    int with_dists, void* cpack, void* idx, void* out,
-                    void* stats, void* stream) {
-  const Plan p{tm, resident, tiles_per_block, wide};
-  if (const int err = check_plan(p, nt)) return err;
+                    int stages, int xres, int search_blocks, int with_dists,
+                    void* cpack, void* idx, void* out, void* stats,
+                    void* stream) {
+  const Plan p{tm, resident, tiles_per_block, wide, stages, xres,
+               search_blocks};
+  if (const int err = check_plan(p, nt, k)) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (wide) {
+    return launch_wide(x, c, n, k, d, nt, p, with_dists ? 1 : 0, cpack, idx,
+                       out, stats, s);
+  }
   const int nkc = (k + 8 * nt - 1) / (8 * nt);
-  const size_t smem =
-      assign_smem_bytes(d, tm, nt, resident ? nkc : 1, wide);
-  // x by TMA where it allows it; wide rows by 16-byte copies where they
-  // allow them (the kernels' argument after the plan)
-  const int tma = !wide && use_tma(x, d) ? 1 : 0;
-  const int how = wide ? wide_copy_width(x, d) : tma;
+  const size_t smem = assign_smem_bytes(d, tm, nt, resident ? nkc : 1, 0, 0,
+                                        0);
+  // x by TMA where it allows it (the kernel's argument after the plan)
+  const int tma = use_tma(x, d) ? 1 : 0;
   CUtensorMap xmap{};
   if (tma) {
     const int err = encode_x(&xmap, x, n, d, tm);
     if (err) return err;
   }
-  const auto kernel = assign_kernel_for(nt, wide);
+  const auto kernel = assign_kernel_for(nt);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
   pack_centroids<<<nkc, 256, 0, s>>>((const float*)c, k, d, nt,
                                      (float*)cpack,
                                      (unsigned long long*)stats);
@@ -191,7 +172,7 @@ int assign_clusters(const void* x, const void* c, int n, int k, int d, int tm,
   const unsigned blocks =
       (unsigned)((tiles + tiles_per_block - 1) / tiles_per_block);
   kernel<<<blocks, kThreads, smem, s>>>(
-      xmap, (const float*)x, (const float*)cpack, n, k, d, p, how,
+      xmap, (const float*)x, (const float*)cpack, n, k, d, p, tma,
       with_dists, (int*)idx, (float*)out, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }

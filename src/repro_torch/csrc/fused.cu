@@ -43,10 +43,17 @@
 //   atomics.  The sums cover acc_k centroids of shared memory at a time;
 //   when k needs more, the block walks its tiles again for each further
 //   range (searching again: the same arithmetic gives the same indices).
-// - Wide rows (the plan's choice): the search streams the products box by box
-//   (search_tile_wide), the sums read the rows from device memory, and
-//   further ranges read back the indices the block wrote instead of
-//   searching again.
+// - Wide rows (d > 96, the plan's choice): pass 1 is the wide search
+//   (assign_common.cuh, item 5: on its own persistent grid, one block an
+//   SM, bound by its three TF32 products, 51.6 ms at the pod-scale cell's
+//   2-shard shard), writing every row's index and inertia term, then
+//   wide_sums_kernel: one block per (partial block, range of acc_k
+//   centroids), adding the block's rows in row order from those indices,
+//   reading each row once.  The first wide form searched inside the 31
+//   partial blocks that the partials' 2^24 floats allow at k = 4,096, d =
+//   128 (31 of 132 SMs) and re-walked every tile for each further range;
+//   block_rows, the partials' layout and their bits are unchanged (the
+//   sums of a centroid in row order, the inertia in the same tree).
 // - Pass 2 reduced 1,024 partials with one thread per element on 9 blocks.
 //   Now one block takes 32 elements: each of its 8 warps sums a fixed
 //   eighth of the blocks in order, and warp 0 adds the eight in order.
@@ -66,7 +73,7 @@ namespace {
 
 using namespace repro_assign;
 
-constexpr float kBig = 3.4e38f;  // the reference's score clamp
+constexpr float kBig = kScoreClamp;  // the reference's score clamp
 constexpr int kReduceWarps = 8;
 
 __host__ __device__ inline size_t acc_floats(int d, int tm, int acc_k) {
@@ -118,17 +125,16 @@ __device__ __forceinline__ void add_rows(float* acc, const int* row_j,
   }
 }
 
-// Pass 1.  WIDE: tiles of kWideTM points searched by search_tile_wide,
-// rows read from device memory, and the search made once: further ranges
-// of sums read back the indices the block wrote (how = the copy width);
-// else tiles staged through the ring (how = tma).
-template <int NT, bool WIDE>
+// Pass 1, rows up to WIDE_D features: tiles staged through the ring (by
+// TMA when tma), searched by search_tile, and the sums read from the
+// staged tile; a further range of sums searches the tile again.
+template <int NT>
 __global__ void __launch_bounds__(kThreads)
 fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
                       const float* __restrict__ x,
                       const unsigned char* __restrict__ mask,
                       const float* __restrict__ cpack, int n, int k, int d,
-                      const Plan p, int how, int acc_k,
+                      const Plan p, int tma, int acc_k,
                       int* __restrict__ idx_out, float* __restrict__ part,
                       unsigned long long* __restrict__ stats) {
   extern __shared__ unsigned char smem_raw[];
@@ -139,9 +145,7 @@ fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
   const int ntiles = min(p.tiles_per_block, tiles - tile0);
   const int nkc = (k + 8 * NT - 1) / (8 * NT);
   float* slots = base + kStages * stage_bytes(d, tm) / 4;
-  float* acc = WIDE ? base + kWideStages * wide_step_floats(NT)
-                    : slots + (size_t)(resident ? nkc : 1) *
-                                  chunk_floats(d, NT);
+  float* acc = slots + (size_t)(resident ? nkc : 1) * chunk_floats(d, NT);
   int* cnt = reinterpret_cast<int*>(acc + (size_t)acc_k * d);
   int* row_j = cnt + acc_k;
   int* row_w = row_j + tm;
@@ -151,14 +155,12 @@ fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t stride = (size_t)k * d + k + 1;
   float* mine = part + (size_t)blockIdx.x * stride;
-  const Ring ring{&xmap, x, n, d, tm, how, tile0, ntiles, base, bars};
-  if constexpr (!WIDE) {
-    ring.init();
-    if (resident) {
-      const Centroids cs{cpack, slots, k, d, NT, 1};
-      for (int ch = 0; ch < nkc; ++ch) {
-        stage_chunk(cs, ch, slots + (size_t)ch * chunk_floats(d, NT));
-      }
+  const Ring ring{&xmap, x, n, d, tm, tma, tile0, ntiles, base, bars};
+  ring.init();
+  if (resident) {
+    const Centroids cs{cpack, slots, k, d, NT, 1};
+    for (int ch = 0; ch < nkc; ++ch) {
+      stage_chunk(cs, ch, slots + (size_t)ch * chunk_floats(d, NT));
     }
   }
 
@@ -166,11 +168,9 @@ fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
   const int total = ranges * ntiles;  // the ring's sequence of tiles
   float inertia = 0.f;  // thread r's: row r of each tile, in tile order
   Rechecks rc;
-  if constexpr (!WIDE) {
-    for (int q = 0; q < kStages - 1 && q < total; ++q) {
-      ring.issue(q);
-      ring.commit();
-    }
+  for (int q = 0; q < kStages - 1 && q < total; ++q) {
+    ring.issue(q);
+    ring.commit();
   }
   for (int rg = 0; rg < ranges; ++rg) {
     const int j0 = rg * acc_k, ka = min(acc_k, k - j0);
@@ -192,20 +192,11 @@ fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
         row_j[r] = j;
         row_d2[r] = (t < 0.f) ? 0.f : t;  // NaN stays NaN
       };
-      const float* stage = nullptr;
-      if constexpr (WIDE) {
-        if (rg == 0) {
-          search_tile_wide<NT>(x, n, d, row0, cpack, k, base, how, &rc, emit);
-        } else if (threadIdx.x < valid) {  // written by this block
-          row_j[threadIdx.x] = idx_out[row0 + threadIdx.x];
-        }
-      } else {
-        if (q + kStages - 1 < total) ring.issue(q + kStages - 1);
-        ring.commit();
-        ring.wait(q);
-        stage = ring.stage(q);
-        search_tile<NT>(cs, stage, tm, valid, rg == 0 ? &rc : nullptr, emit);
-      }
+      if (q + kStages - 1 < total) ring.issue(q + kStages - 1);
+      ring.commit();
+      ring.wait(q);
+      const float* stage = ring.stage(q);
+      search_tile<NT>(cs, stage, tm, valid, rg == 0 ? &rc : nullptr, emit);
       if (threadIdx.x < tm) row_w[threadIdx.x] = w_r;
       __syncthreads();
 
@@ -214,15 +205,9 @@ fused_partials_kernel(const __grid_constant__ CUtensorMap xmap,
         const int jj = row_j[threadIdx.x] - j0;
         if (jj >= 0 && jj < ka) atomicAdd(cnt + jj, 1);
       }
-      if constexpr (WIDE) {
-        add_rows(acc, row_j, row_w, tm, d, j0, ka, [&](int r, int f) {
-          return __ldg(x + (size_t)(row0 + r) * d + f);
-        });
-      } else {
-        add_rows(acc, row_j, row_w, tm, d, j0, ka, [&](int r, int f) {
-          return stage[swz(r, f, tm)];
-        });
-      }
+      add_rows(acc, row_j, row_w, tm, d, j0, ka, [&](int r, int f) {
+        return stage[swz(r, f, tm)];
+      });
       // thread r's inertia terms: its row of every tile, in tile order
       if (rg == 0 && w_r) inertia = __fadd_rn(inertia, row_d2[threadIdx.x]);
       __syncthreads();  // the stage and the row arrays are free again
@@ -277,17 +262,154 @@ reduce_partials_kernel(const float* __restrict__ part, int blocks,
 }
 
 // The pass-1 kernel for nt 8-centroid groups a chunk (1, 2, 4 or 8).
-decltype(&fused_partials_kernel<8, false>) fused_kernel_for(int nt,
-                                                            int wide) {
+decltype(&fused_partials_kernel<8>) fused_kernel_for(int nt) {
   switch (nt) {
-    case 1: return wide ? fused_partials_kernel<1, true>
-                        : fused_partials_kernel<1, false>;
-    case 2: return wide ? fused_partials_kernel<2, true>
-                        : fused_partials_kernel<2, false>;
-    case 4: return wide ? fused_partials_kernel<4, true>
-                        : fused_partials_kernel<4, false>;
-    default: return wide ? fused_partials_kernel<8, true>
-                         : fused_partials_kernel<8, false>;
+    case 1: return fused_partials_kernel<1>;
+    case 2: return fused_partials_kernel<2>;
+    case 4: return fused_partials_kernel<4>;
+    default: return fused_partials_kernel<8>;
+  }
+}
+
+// Pass 1's sums for wide rows, after the wide search has written every
+// row's index and inertia term (rowval).  Block (b, rg) writes the sums and
+// counts of centroids [rg acc_k, (rg + 1) acc_k) over the rows of partial
+// block b (block_rows rows) into its slice of part, and block (b, 0) the
+// inertia: the first kernel's arithmetic and order, so the partials are
+// its bits.  Warp w adds the rows of the centroids jj with jj % kSumsWarps
+// == w, in row order, kSumsBatch rows at a time (their loads in flight
+// together, the adds in order), one lane a feature; it reads the indices
+// and the mask of 128 rows at once, the next 128 in flight meanwhile.
+// Thread r < kWideTM sums the inertia terms of row r of every 64-row tile
+// in tile order; then the lanes by a fixed tree and the two warps in
+// order.
+constexpr int kSumsThreads = 256;
+constexpr int kSumsWarps = kSumsThreads / 32;
+constexpr int kSumsBatch = 4;
+
+__host__ __device__ inline size_t sums_smem_bytes(int d, int acc_k) {
+  return ((size_t)acc_k * d + acc_k) * sizeof(float) + 16;
+}
+
+__global__ void __launch_bounds__(kSumsThreads)
+wide_sums_kernel(const float* __restrict__ x,
+                 const unsigned char* __restrict__ mask,
+                 const int* __restrict__ idx, const float* __restrict__ rowval,
+                 int n, int k, int d, int block_rows, int acc_k,
+                 float* __restrict__ part) {
+  extern __shared__ float sums_smem[];
+  const int rg = blockIdx.y, j0 = rg * acc_k, ka = min(acc_k, k - j0);
+  float* acc = sums_smem;
+  int* cnt = reinterpret_cast<int*>(acc + (size_t)ka * d);
+  float* wsum = reinterpret_cast<float*>(cnt + ka);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * block_rows, r1 = min(n, r0 + block_rows);
+  for (int e = threadIdx.x; e < ka * d; e += kSumsThreads) acc[e] = 0.f;
+  for (int e = threadIdx.x; e < ka; e += kSumsThreads) cnt[e] = 0;
+  __syncthreads();
+
+  // the indices and weights of 128 rows at a time, the next 128 in flight
+  // while these are added
+  int ir[4], nir[4];
+  unsigned char mr[4], nmr[4];
+  const auto load = [&](int base, int (&i4)[4], unsigned char (&m4)[4]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = base + 32 * u + lane;
+      i4[u] = r < r1 ? idx[r] : 0;
+      m4[u] = r < r1 ? mask[r] : 0;
+    }
+  };
+  load(r0, ir, mr);
+  for (int base = r0; base < r1; base += 128) {
+    if (base + 128 < r1) load(base + 128, nir, nmr);
+    int jr[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int jj = ir[u] - j0;
+      jr[u] = (mr[u] && jj >= 0 && jj < ka && jj % kSumsWarps == warp) ? jj
+                                                                      : -1;
+      ir[u] = nir[u];
+      mr[u] = nmr[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      unsigned bits = __ballot_sync(0xffffffffu, jr[u] >= 0);
+      while (bits) {
+        int rr[kSumsBatch], jb[kSumsBatch], m = 0;
+#pragma unroll
+        for (int i = 0; i < kSumsBatch; ++i) {
+          rr[i] = -1;
+          jb[i] = 0;
+          if (bits) {
+            const int b = __ffs(bits) - 1;
+            bits &= bits - 1;
+            rr[i] = base + 32 * u + b;
+            jb[i] = __shfl_sync(0xffffffffu, jr[u], b);
+            m = i + 1;
+          }
+        }
+        for (int f0 = 0; f0 < d; f0 += 128) {
+          float v[kSumsBatch][4];
+#pragma unroll
+          for (int i = 0; i < kSumsBatch; ++i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int f = f0 + 32 * c + lane;
+              v[i][c] = 0.f;
+              if (i < m && f < d) v[i][c] = __ldg(x + (size_t)rr[i] * d + f);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kSumsBatch; ++i) {
+            if (i < m) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int f = f0 + 32 * c + lane;
+                if (f < d) {
+                  float* a = acc + (size_t)jb[i] * d + f;
+                  *a = __fadd_rn(*a, v[i][c]);
+                }
+              }
+            }
+          }
+        }
+        if (lane == 0) {  // the warp's own centroids: no atomics
+#pragma unroll
+          for (int i = 0; i < kSumsBatch; ++i) {
+            if (i < m) ++cnt[jb[i]];
+          }
+        }
+      }
+    }
+  }
+
+  if (rg == 0) {
+    float inertia = 0.f;
+    if (threadIdx.x < kWideTM) {
+#pragma unroll 8
+      for (int r = r0 + threadIdx.x; r < r1; r += kWideTM) {
+        if (mask[r]) inertia = __fadd_rn(inertia, rowval[r]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      inertia = __fadd_rn(inertia, __shfl_xor_sync(0xffffffffu, inertia, o));
+    }
+    if (lane == 0 && warp < 2) wsum[warp] = inertia;
+  }
+  __syncthreads();
+  const size_t stride = (size_t)k * d + k + 1;
+  float* mine = part + (size_t)blockIdx.x * stride;
+  for (int e = threadIdx.x; e < ka * d; e += kSumsThreads) {
+    mine[(size_t)j0 * d + e] = acc[e];
+  }
+  for (int e = threadIdx.x; e < ka; e += kSumsThreads) {
+    mine[(size_t)k * d + j0 + e] = (float)cnt[e];  // exact below 2^24
+  }
+  // the first kernel added warps 2 and 3's +0 after these two
+  if (rg == 0 && threadIdx.x == 0) {
+    mine[(size_t)k * d + k] = __fadd_rn(wsum[0], wsum[1]);
   }
 }
 
@@ -295,10 +417,12 @@ decltype(&fused_partials_kernel<8, false>) fused_kernel_for(int nt,
 
 extern "C" {
 
-// Shared memory one pass-1 block needs (bytes).
+// Shared memory one pass-1 block needs (bytes): the staged kernel's, or for
+// wide rows the sums kernel's (the wide search's is assign_smem_bytes').
 size_t fused_smem_bytes(int d, int tm, int nt, int slots, int wide,
                         int acc_k) {
-  return (wide ? wide_smem_bytes(nt) : search_smem_bytes(d, tm, nt, slots)) +
+  if (wide) return sums_smem_bytes(d, acc_k);
+  return search_smem_bytes(d, tm, nt, slots) +
          acc_floats(d, tm, acc_k) * sizeof(float) +
          kStages * sizeof(uint64_t);
 }
@@ -307,28 +431,45 @@ size_t fused_smem_bytes(int d, int tm, int nt, int slots, int wide,
 
 namespace {
 
-// Pass 1 (pack_centroids + the partials kernel): part gets one partial a
-// block, *blocks their number.
+// Pass 1 (pack_centroids + the partials kernel, or for wide rows the wide
+// search and the sums kernel): part gets one partial a block, *blocks
+// their number.
 int launch_partials(const void* x, const void* c, const void* mask, int n,
-                    int k, int d, int tm, int nt, int resident,
-                    int tiles_per_block, int wide, int acc_k, void* cpack,
-                    void* idx, void* part, void* stats, cudaStream_t s,
-                    int* blocks) {
-  const Plan p{tm, resident, tiles_per_block, wide};
-  if (const int err = check_plan(p, nt)) return err;
+                    int k, int d, const Plan& p, int nt, int acc_k,
+                    void* cpack, void* idx, void* rowval, void* part,
+                    void* stats, cudaStream_t s, int* blocks) {
+  if (const int err = check_plan(p, nt, k)) return err;
   if (acc_k < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (n + p.tm - 1) / p.tm;
+  *blocks = (tiles + p.tiles_per_block - 1) / p.tiles_per_block;
+  if (p.wide) {
+    if (rowval == nullptr) return (int)cudaErrorInvalidValue;
+    int err = launch_wide(x, c, n, k, d, nt, p, 2, cpack, idx, rowval, stats,
+                          s);
+    if (err) return err;
+    const size_t smem = sums_smem_bytes(d, acc_k);
+    cudaError_t e = cudaFuncSetAttribute(
+        wide_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(*blocks, (k + acc_k - 1) / acc_k);
+    wide_sums_kernel<<<grid, kSumsThreads, smem, s>>>(
+        (const float*)x, (const unsigned char*)mask, (const int*)idx,
+        (const float*)rowval, n, k, d, p.tiles_per_block * p.tm, acc_k,
+        (float*)part);
+    return (int)cudaGetLastError();
+  }
   const int nkc = (k + 8 * nt - 1) / (8 * nt);
   const size_t smem =
-      fused_smem_bytes(d, tm, nt, resident ? nkc : 1, wide, acc_k);
-  // as in assign_clusters: TMA, or for wide rows the copy width
-  const int tma = !wide && use_tma(x, d) ? 1 : 0;
-  const int how = wide ? wide_copy_width(x, d) : tma;
+      fused_smem_bytes(d, p.tm, nt, p.resident ? nkc : 1, 0, acc_k);
+  // as in assign_clusters: TMA where x allows it
+  const int tma = use_tma(x, d) ? 1 : 0;
   CUtensorMap xmap{};
   if (tma) {
-    const int err = encode_x(&xmap, x, n, d, tm);
+    const int err = encode_x(&xmap, x, n, d, p.tm);
     if (err) return err;
   }
-  const auto kernel = fused_kernel_for(nt, wide);
+  const auto kernel = fused_kernel_for(nt);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -337,11 +478,9 @@ int launch_partials(const void* x, const void* c, const void* mask, int n,
                                      (unsigned long long*)stats);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (n + tm - 1) / tm;
-  *blocks = (tiles + p.tiles_per_block - 1) / p.tiles_per_block;
   kernel<<<*blocks, kThreads, smem, s>>>(
       xmap, (const float*)x, (const unsigned char*)mask, (const float*)cpack,
-      n, k, d, p, how, acc_k, (int*)idx, (float*)part,
+      n, k, d, p, tma, acc_k, (int*)idx, (float*)part,
       (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
@@ -358,23 +497,28 @@ int launch_reduce(const void* part, int blocks, int stride, void* out,
 extern "C" {
 
 // x: (n, d) f32, c: (k, d) f32, mask: (n,) bool, all contiguous on the
-// current device; n >= 1.  tm, nt, resident, tiles_per_block and wide as
-// for assign_clusters; acc_k centroids' sums fit the shared memory at a
-// time.  cpack: centroid_pack_floats(k, d, nt) f32 scratch; part:
-// blocks * (k*d + k + 1) f32 scratch, blocks = ceil(ceil(n / tm) /
-// tiles_per_block); stats: 2 u64 scratch.  Writes idx (n,) i32 and
-// out = [sums (k*d) | counts (k) | inertia (1)] f32 on `stream`.  Returns 0
-// or an error code for kernel_error_string; does not synchronise.
+// current device; n >= 1.  tm, nt, resident, tiles_per_block, wide,
+// stages, xres and search_blocks as for assign_clusters; acc_k centroids'
+// sums fit the shared memory at a time.  cpack:
+// centroid_pack_floats(k, d, nt) f32 scratch; rowval: n f32 scratch for
+// wide rows (else unused); part: blocks * (k*d + k + 1) f32 scratch,
+// blocks = ceil(ceil(n / tm) / tiles_per_block); stats: 2 u64 scratch.
+// Writes idx (n,) i32 and out = [sums (k*d) | counts (k) | inertia (1)]
+// f32 on `stream`.  Returns 0 or an error code for kernel_error_string;
+// does not synchronise.
 int fused_masked_assign_update(const void* x, const void* c, const void* mask,
                                int n, int k, int d, int tm, int nt,
                                int resident, int tiles_per_block, int wide,
-                               int acc_k, void* cpack, void* idx, void* part,
-                               void* out, void* stats, void* stream) {
+                               int stages, int xres, int search_blocks,
+                               int acc_k, void* cpack, void* idx,
+                               void* rowval, void* part, void* out,
+                               void* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const Plan p{tm, resident, tiles_per_block, wide, stages, xres,
+               search_blocks};
   int blocks = 0;
-  const int err = launch_partials(x, c, mask, n, k, d, tm, nt, resident,
-                                  tiles_per_block, wide, acc_k, cpack, idx,
-                                  part, stats, s, &blocks);
+  const int err = launch_partials(x, c, mask, n, k, d, p, nt, acc_k, cpack,
+                                  idx, rowval, part, stats, s, &blocks);
   if (err) return err;
   return launch_reduce(part, blocks, k * d + k + 1, out, s);
 }
@@ -386,13 +530,15 @@ int fused_masked_assign_update(const void* x, const void* c, const void* mask,
 // distributed lane's shards (core/distributed.py).
 int fused_masked_partials(const void* x, const void* c, const void* mask,
                           int n, int k, int d, int tm, int nt, int resident,
-                          int tiles_per_block, int wide, int acc_k,
-                          void* cpack, void* idx, void* part, void* stats,
+                          int tiles_per_block, int wide, int stages, int xres,
+                          int search_blocks, int acc_k, void* cpack,
+                          void* idx, void* rowval, void* part, void* stats,
                           void* stream) {
+  const Plan p{tm, resident, tiles_per_block, wide, stages, xres,
+               search_blocks};
   int blocks = 0;
-  return launch_partials(x, c, mask, n, k, d, tm, nt, resident,
-                         tiles_per_block, wide, acc_k, cpack, idx, part,
-                         stats, (cudaStream_t)stream, &blocks);
+  return launch_partials(x, c, mask, n, k, d, p, nt, acc_k, cpack, idx,
+                         rowval, part, stats, (cudaStream_t)stream, &blocks);
 }
 
 // Pass 2 alone: out[e] = the sum over `blocks` partials of part[b * stride

@@ -60,11 +60,11 @@ __all__ = ["block_rows", "fused_masked_assign_update",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_masked_assign_update": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-         _P, _P], ctypes.c_int),
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+         _P, _P, _P, _P, _P], ctypes.c_int),
     "fused_masked_partials": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-         _P], ctypes.c_int),
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+         _P, _P, _P, _P], ctypes.c_int),
     "fused_reduce_partials": ([_P, _I, _I, _P, _P], ctypes.c_int),
     "fused_smem_bytes": ([_I, _I, _I, _I, _I, _I], ctypes.c_size_t),
     "centroid_pack_floats": ([_I, _I, _I], ctypes.c_size_t),
@@ -108,12 +108,26 @@ def _check_inputs(x: torch.Tensor, c: torch.Tensor,
 
 
 def _plan(n: int, k: int, d: int) -> Tuple[ops.Plan, int]:
-    """The search's plan (blocks capped so the partials stay a few MB and
-    pass 2 short) and acc_k, the centroids whose sums fit the shared
-    memory left."""
+    """The search's plan (its partial blocks capped so the partials stay a
+    few MB and pass 2 short) and acc_k, the centroids whose sums fit the
+    shared memory at a time.
+
+    Up to WIDE_D features the sums share the search's block: acc_k is what
+    is left beside its ring and chunks.  For wide rows the search runs on
+    its own grid (``ops.search_grid``) and writes every row's index and
+    inertia term; a second kernel then adds each partial block's rows in
+    row order, one block per (partial block, range of acc_k centroids),
+    so acc_k is what a block's shared memory holds.  Neither
+    the search's grid nor acc_k changes a partial's bits: block_rows does
+    not move with them.
+    """
     stride = k * d + k + 1
     p = ops.plan(n, k, d, max_blocks=max(1, min(
         ops.MAX_BLOCKS, _MAX_PARTIAL_FLOATS // stride)))
+    if p.wide:
+        acc_k = max(1, min(k, (ops.MAX_SMEM - ops.sums_bytes(d, 0))
+                           // (4 * (d + 1))))
+        return p, acc_k
     left = ops.MAX_SMEM - ops.fused_bytes(d, p, 0)
     acc_k = max(1, min(k, left // (4 * (d + 1))))
     while acc_k > 1 and ops.fused_bytes(d, p, acc_k) > ops.MAX_SMEM:
@@ -159,7 +173,8 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor,
         tpb = rows_per_block // p.tm
         tiles = -(-n // p.tm)
         p = p._replace(tiles_per_block=tpb, blocks=-(-tiles // tpb))
-    if ops.fused_bytes(d, p, acc_k) > ops.MAX_SMEM:
+    if max(ops.fused_bytes(d, p, acc_k),
+           ops.assign_bytes(d, p)) > ops.MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
     lib = _lib()
     smem = lib.fused_smem_bytes(d, p.tm, p.nt, p.slots, int(p.wide), acc_k)
@@ -168,14 +183,20 @@ def _launch(x: torch.Tensor, c: torch.Tensor, mask: torch.Tensor,
                            f"{ops.fused_bytes(d, p, acc_k)}: ops.py's layout "
                            f"has drifted from csrc/fused.cu")
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
-    cpack = torch.empty(lib.centroid_pack_floats(k, d, p.nt),
+    exact = p.wide and p.stages == 0
+    cpack = torch.empty(0 if exact else lib.centroid_pack_floats(k, d, p.nt),
                         dtype=torch.float32, device=x.device)
+    # wide rows: every row's inertia term, from the search to the sums
+    rowval = (torch.empty(n, dtype=torch.float32, device=x.device)
+              if p.wide else None)
     part = torch.empty((p.blocks, stride), dtype=torch.float32,
                        device=x.device)
     stats = torch.empty(2, dtype=torch.int64, device=x.device)
     args = (x.data_ptr(), c.data_ptr(), mask.data_ptr(), n, k, d, p.tm, p.nt,
-            int(p.resident), p.tiles_per_block, int(p.wide), acc_k,
-            cpack.data_ptr(), idx.data_ptr(), part.data_ptr())
+            int(p.resident), p.tiles_per_block, int(p.wide), p.stages,
+            int(p.xres), ops.search_grid(p, ops.sm_count(x.device)), acc_k,
+            cpack.data_ptr(), idx.data_ptr(),
+            None if rowval is None else rowval.data_ptr(), part.data_ptr())
     out = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

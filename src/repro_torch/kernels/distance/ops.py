@@ -10,8 +10,10 @@ rechecks (:func:`rechecks` reads it).
 :func:`plan` sizes a launch of this kernel and of the fused step
 (``csrc/fused.cu``), which share the search in ``csrc/assign_common.cuh``:
 rows per staged tile, centroids per packed chunk, whether every chunk stays
-in shared memory, whether rows are wide enough to stream the products box
-by box (``search_tile_wide``), and the grid, all from (n, k, d) alone.
+in shared memory, whether rows are wide enough for the wide search
+(``search_wide_kernel``, or ``exact_wide_kernel`` for k <= 8) and its ring,
+and the grids, all from (n, k, d) alone; the TF32 form's persistent grid
+is capped at the card's SMs when it launches (:func:`search_grid`).
 The byte sizes it plans with (:func:`assign_bytes`, :func:`fused_bytes`)
 restate the header's layout; every launch holds them to the library's own
 count and raises if the two differ.
@@ -41,38 +43,55 @@ _RESIDENT_BYTES = 64 * 1024
 # The ring's alignment slack and its mbarriers (kStages of 8 bytes).
 _SLACK_BYTES = 1024
 _BARRIER_BYTES = 16
-# Rows wider than this take the wide search, which is as fast as the
-# staged one or faster from 128 features on and slower at 96 and below on
-# an H100 (chip_smoke.py's "search forms" rows); whole rows also leave the
-# staged search tiles of 64 points or fewer from here on.  Its tiles hold
-# _WIDE_TM points, its ring _WIDE_STAGES box steps (kWideTM, kWideStages).
+# Rows wider than this take the wide search.  On an H100 (chip_smoke.py's
+# "search forms" rows, n 65,536, k 64; PERF.md) it is 1.7x / 2.0x
+# faster than the staged search at d 128 (assignment / fused step) and
+# 3.4x / 4.5x at d 192, and the staged one cannot hold rows of 1,024
+# features; at d 96 the wide search is faster too (0.0749 vs 0.1017 ms,
+# 0.1402 vs 0.1538 ms).  The switch stays at 96 all the same: below it the
+# staged plan fixes the fused step's partial blocks (block_rows) and so the
+# bits of the one-job and service paths, and where below 96 the wide
+# search starts to win is not measured.
 WIDE_D = 96
+# The wide search (csrc/assign_common.cuh, item 5): the fused step's sums
+# take tiles of _WIDE_TM rows (kWideTM); the TF32 form's tiles hold
+# _WIDE_ROWS points (kWideRows) and its ring up to _WIDE_MAX_STAGES box
+# steps; k <= _EXACT_K takes the exact form, _EXACT_THREADS a block.
 _WIDE_TM = 64
-_WIDE_STAGES = 4
+_WIDE_ROWS = 128
+_WIDE_MAX_STAGES = 8
+_EXACT_K = 8
+_EXACT_THREADS = 64
 # At most this many blocks: each owns a run of whole tiles.
 MAX_BLOCKS = 1024
 
 __all__ = ["assign_bytes", "assign_clusters", "assign_clusters_ref",
-           "fused_bytes", "pairwise_sq_dists", "plan", "rechecks"]
+           "fused_bytes", "pairwise_sq_dists", "plan", "rechecks",
+           "search_grid", "sums_bytes", "wide_bytes"]
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "assign_clusters": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                         _P, _P, _P], ctypes.c_int),
-    "assign_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_size_t),
+    "assign_clusters": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _P, _P, _P], ctypes.c_int),
+    "assign_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I], ctypes.c_size_t),
     "centroid_pack_floats": ([_I, _I, _I], ctypes.c_size_t),
 }
 
 
 class Plan(NamedTuple):
-    tm: int               # points per staged tile (a multiple of 16)
+    tm: int               # points per staged tile (a multiple of 16); wide
+                          # rows: _WIDE_TM, the fused step's sums' tile
     nt: int               # 8-centroid groups per packed chunk: 1, 2, 4, 8
     resident: bool        # every chunk stays in shared memory
-    tiles_per_block: int
-    blocks: int
+    tiles_per_block: int  # (wide rows: of the fused step's sums)
+    blocks: int           # (wide rows: the fused step's partial blocks)
     slots: int            # chunks held in shared memory at once
-    wide: bool            # d > WIDE_D: the products streamed box by box
+    wide: bool            # d > WIDE_D: the wide search
+    stages: int = 0       # wide rows: the TF32 form's ring; 0 the exact form
+    xres: bool = False    # wide rows: x's tile stays in shared memory
+    search_blocks: int = 0  # wide rows: the search's blocks (the TF32
+                            # form: its 128-point tiles; search_grid)
 
 
 def _ksteps(d: int) -> int:
@@ -97,14 +116,27 @@ def stage_bytes(d: int, tm: int) -> int:
     return boxes(d) * tm * 128
 
 
+def wide_bytes(d: int, nt: int, stages: int, xres: bool) -> int:
+    """Shared memory of a wide-search block (wide_smem_bytes): alignment
+    slack, x's resident tile as TF32 hi and lo images (128-row boxes), the
+    ring of box steps (x's box unless resident, the chunk's hi and lo
+    boxes), 2 stages + 2 mbarriers, each tile row's best key (8 bytes) and
+    recheck count (4); 0 for the exact form."""
+    if stages == 0:
+        return 0
+    xtile = 2 * boxes(d) * _WIDE_ROWS * 128 if xres else 0
+    stage = (0 if xres else _WIDE_ROWS * 128) + 16 * nt * 128
+    return (_SLACK_BYTES + xtile + stages * stage + 8 * (2 * stages + 2)
+            + 12 * _WIDE_ROWS)
+
+
 def assign_bytes(d: int, p: Plan) -> int:
     """Shared memory of an assignment block (assign_smem_bytes): the
-    ring and the chunk slots, or for wide rows the ring of box steps (x's
-    box and the chunk's hi and lo boxes); alignment slack, mbarriers."""
+    ring and the chunk slots, alignment slack, mbarriers; for wide rows
+    :func:`wide_bytes`."""
     if p.wide:
-        body = _WIDE_STAGES * (_WIDE_TM + 16 * p.nt) * 128
-    else:
-        body = 2 * stage_bytes(d, p.tm) + p.slots * chunk_bytes(d, p.nt)
+        return wide_bytes(d, p.nt, p.stages, p.xres)
+    body = 2 * stage_bytes(d, p.tm) + p.slots * chunk_bytes(d, p.nt)
     return _SLACK_BYTES + body + _BARRIER_BYTES
 
 
@@ -114,9 +146,36 @@ def acc_floats(d: int, tm: int, acc_k: int) -> int:
     return f + (f & 1)
 
 
+def sums_bytes(d: int, acc_k: int) -> int:
+    """Shared memory of the wide rows' sums kernel (sums_smem_bytes):
+    acc_k centroids' sums and counts, two warps' inertia."""
+    return 4 * (acc_k * d + acc_k) + 16
+
+
 def fused_bytes(d: int, p: Plan, acc_k: int) -> int:
-    """Shared memory of a fused-step block (fused_smem_bytes)."""
+    """Shared memory of a fused-step block (fused_smem_bytes); for wide rows
+    the sums kernel's (the search's is :func:`assign_bytes`)."""
+    if p.wide:
+        return sums_bytes(d, acc_k)
     return assign_bytes(d, p) + 4 * acc_floats(d, p.tm, acc_k)
+
+
+def _wide_search(n: int, k: int, d: int) -> Tuple[int, int, bool, int]:
+    """(nt, stages, xres, search_blocks) of the wide search."""
+    if k <= _EXACT_K:  # every pair exact: lanes of a block, a pair each
+        kp = 1 << (k - 1).bit_length()
+        return 1, 0, False, -(-n * kp // _EXACT_THREADS)
+    nt = 8
+    while nt > 1 and 8 * (nt // 2) >= k:
+        nt //= 2
+    # x's tile stays while the chunks go by, where there are several and
+    # it fits beside a ring of two; else its boxes ride the ring
+    xres = (-(-k // (8 * nt)) > 1
+            and wide_bytes(d, nt, 2, True) <= MAX_SMEM)
+    stages = _WIDE_MAX_STAGES
+    while stages > 2 and wide_bytes(d, nt, stages, xres) > MAX_SMEM:
+        stages -= 1
+    return nt, stages, xres, -(-n // _WIDE_ROWS)
 
 
 def plan(n: int, k: int, d: int, max_blocks: int = MAX_BLOCKS) -> Plan:
@@ -124,29 +183,55 @@ def plan(n: int, k: int, d: int, max_blocks: int = MAX_BLOCKS) -> Plan:
     alone, so a fused step always sums in the same order.
 
     Up to WIDE_D features: tiles of up to 128 whole rows in a 2-stage
-    ring, chunks of up to 64 centroids resident or staged one at a time.
-    Wider rows: tiles of 64 points against chunks of up to 64 centroids,
-    streamed a 32-column box at a time (no whole row in shared memory).
+    ring, chunks of up to 64 centroids resident or staged one at a time;
+    blocks of tiles_per_block tiles, which are the fused step's partial
+    blocks.  Wider rows: the wide search, bound by its three TF32
+    products: search_blocks tiles of 128 points, walked by a persistent
+    grid of at most one block an SM (:func:`search_grid`), against chunks
+    of up to 64 centroids (nt) streamed a 32-column box at a time through
+    a ring of ``stages`` box steps, x's tile resident across the chunks
+    when there are several and it fits (xres); or, for k <= 8, the exact
+    form (stages 0), every pair scored exactly, search_blocks blocks of
+    64 lanes, a lane a (point, centroid) pair (at the embedding fit's
+    shape it is bound by each lane's chain of d adds, and takes a third
+    of the TF32 form's time).  The fused step's sums then take partial
+    blocks of tiles_per_block tiles of 64 rows (block_rows), as the first
+    wide form's did.
     """
-    nt = 8
     if d > WIDE_D:
-        while nt > 1 and 8 * (nt // 2) >= k:
-            nt //= 2
-        tm, resident, slots = _WIDE_TM, False, 0
-    else:
-        tm = 128
-        while tm > 16 and 2 * stage_bytes(d, tm) > _RING_BYTES:
-            tm //= 2
-        while nt > 1 and (8 * (nt // 2) >= k
-                          or chunk_bytes(d, nt) > _CHUNK_BYTES):
-            nt //= 2
-        chunks = -(-k // (8 * nt))
-        resident = chunks * chunk_bytes(d, nt) <= _RESIDENT_BYTES
-        slots = chunks if resident else 1
+        nt, stages, xres, search_blocks = _wide_search(n, k, d)
+        tiles = -(-n // _WIDE_TM)
+        tiles_per_block = -(-tiles // max(1, max_blocks))
+        return Plan(_WIDE_TM, nt, False, tiles_per_block,
+                    -(-tiles // tiles_per_block), 0, True, stages, xres,
+                    search_blocks)
+    nt = 8
+    tm = 128
+    while tm > 16 and 2 * stage_bytes(d, tm) > _RING_BYTES:
+        tm //= 2
+    while nt > 1 and (8 * (nt // 2) >= k
+                      or chunk_bytes(d, nt) > _CHUNK_BYTES):
+        nt //= 2
+    chunks = -(-k // (8 * nt))
+    resident = chunks * chunk_bytes(d, nt) <= _RESIDENT_BYTES
+    slots = chunks if resident else 1
     tiles = -(-n // tm)
     tiles_per_block = -(-tiles // max(1, max_blocks))
     return Plan(tm, nt, resident, tiles_per_block,
-                -(-tiles // tiles_per_block), slots, d > WIDE_D)
+                -(-tiles // tiles_per_block), slots, False)
+
+
+def search_grid(p: Plan, sms: int) -> int:
+    """The wide search's grid on a card of ``sms`` SMs: the TF32 form's
+    persistent grid takes one block an SM, or one a tile where there are
+    fewer tiles; the exact form's blocks each take their own lanes.  The
+    grid changes no bits."""
+    return p.search_blocks if p.stages == 0 else min(p.search_blocks, sms)
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rechecks(fn) -> Tuple[int, int]:
@@ -192,19 +277,22 @@ def _launch(x: torch.Tensor, c: torch.Tensor, with_dists: bool
     if assign_bytes(d, p) > MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
     lib = _lib()
-    smem = lib.assign_smem_bytes(d, p.tm, p.nt, p.slots, int(p.wide))
+    smem = lib.assign_smem_bytes(d, p.tm, p.nt, p.slots, int(p.wide),
+                                 p.stages, int(p.xres))
     if smem != assign_bytes(d, p):
         raise RuntimeError(f"assign_smem_bytes says {smem} bytes, the plan "
                            f"{assign_bytes(d, p)}: ops.py's layout has "
                            f"drifted from csrc/assign_common.cuh")
-    cpack = torch.empty(lib.centroid_pack_floats(k, d, p.nt),
+    exact = p.wide and p.stages == 0
+    cpack = torch.empty(0 if exact else lib.centroid_pack_floats(k, d, p.nt),
                         dtype=torch.float32, device=x.device)
     stats = torch.empty(2, dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.assign_clusters(
             x.data_ptr(), c.data_ptr(), n, k, d, p.tm, p.nt, int(p.resident),
-            p.tiles_per_block, int(p.wide), int(with_dists),
+            p.tiles_per_block, int(p.wide), p.stages, int(p.xres),
+            search_grid(p, sm_count(x.device)), int(with_dists),
             cpack.data_ptr(),
             idx.data_ptr(), out.data_ptr(), stats.data_ptr(), stream)
     _build.check(lib, err, "assign_clusters")

@@ -9,6 +9,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 DBSCAN ones, ``-k "moe or mamba or families"`` for the MoE FFN, the Mamba
 mixer and the six archs that use them, card against host.)
 
+(``-k wide`` for the K-Means kernels' wide search, d > 96.)
+
 (``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
 """
 
@@ -202,7 +204,7 @@ def test_neighbor_cross_plan_takes_the_rectangle(gen, nr, nc):
 
 @pytest.mark.parametrize("n,k,d,cuts", [
     (100000, 64, 32, 4), (5000, 7, 5, 3), (3000, 70, 200, 2),
-    (1048576, 64, 32, 4)])
+    (1048576, 64, 32, 4), (1 << 18, 4096, 128, 16), (20000, 4, 300, 3)])
 def test_fused_passes_over_block_cuts_are_the_whole_step(gen, n, k, d, cuts):
     # pass 1 over cuts at the whole launch's blocks writes the whole
     # launch's partials; pass 2 over them gives its sums, bit for bit
@@ -513,6 +515,92 @@ def test_wide_search_at_narrow_rows(gen, monkeypatch, d):
     assert torch.equal(fidx, ridx) and torch.equal(counts, rcounts)
 
 
+# The wide search (d > 96) at small n, against the plain versions: the
+# exact form (k <= 8) and the TF32 form (k = 9: one chunk of 16; 64; 4,096:
+# 64 chunks, x's tile resident where it fits), 16-byte copies or TMA (97
+# takes 4-byte copies), one tile and several; then the fused step's sums,
+# and a second launch bitwise equal.
+WIDE_NS = [1, 17, 63, 65, 1024]
+WIDE_KS = [1, 4, 9, 64, 4096]
+WIDE_DS = [97, 128, 1815, 2048, 4096]
+
+
+def _check_wide(x, c, mask):
+    n, k = x.shape[0], c.shape[0]
+    for with_dists in (True, False):
+        idx, out = dops.assign_clusters(x, c, with_dists=with_dists)
+        ridx, rscore = dref.assign_scores_ref(x, c)
+        rout = dref.add_point_norms(x, rscore) if with_dists else rscore
+        torch.cuda.synchronize()
+        assert torch.equal(idx, ridx) and _same_bits(out, rout)
+    got = fops.fused_masked_assign_update(x, c, mask)
+    fidx, sums, counts, inertia = got
+    finite = torch.isfinite(x).all(1)
+    _, _, rcounts, rinert = dref.fused_masked_assign_update_ref(x, c, mask)
+    _, rsums, _, _ = dref.fused_masked_assign_update_ref(
+        x[finite], c, mask[finite])
+    torch.cuda.synchronize()
+    assert torch.equal(fidx, ridx) and torch.equal(counts, rcounts)
+    onehot = (ridx[finite, None] == torch.arange(k, device="cuda")) \
+        & mask[finite, None]
+    scale = onehot.float().T @ x[finite].abs()
+    assert bool(((sums - rsums).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.allclose(inertia, rinert, rtol=1e-5, atol=1e-5)
+    again = fops.fused_masked_assign_update(x, c, mask)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+@pytest.mark.parametrize("k", WIDE_KS)
+@pytest.mark.parametrize("n", WIDE_NS)
+def test_wide_search_small_n_is_bit_exact(gen, n, k, d):
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    x = (c[torch.randint(0, k, (n,), generator=gen).cuda()]
+         + torch.randn(n, d, generator=gen).cuda())
+    assert dops.plan(n, k, d).wide
+    mask = (torch.arange(n) % 3 != 1).cuda()
+    _check_wide(x.contiguous(), c, mask)
+
+
+@pytest.mark.parametrize("d", [97, 128, 2048])
+def test_wide_search_near_ties_are_bit_exact(gen, d):
+    # midpoints of centroid pairs +-1 ulp, duplicate centroids, points on
+    # centroids, an inf row and a NaN row; then centroids holding inf and
+    # NaN; at k = 30 (TF32 form) and k = 5 (exact form)
+    x, c = _near_ties(gen, d)
+    n = x.shape[0]
+    mask = torch.isfinite(x).all(1) & (torch.arange(n, device="cuda") % 5 != 0)
+    for cc in (c, c[:5].contiguous()):
+        _check_wide(x, cc, mask)
+    cbad = c.clone()
+    cbad[3, 0] = float("inf")
+    cbad[7, d - 1] = float("nan")
+    for cc in (cbad, cbad[:8].contiguous()):
+        idx, score = dops.assign_clusters(x, cc, with_dists=False)
+        ridx, rscore = dref.assign_scores_ref(x, cc)
+        assert torch.equal(idx, ridx) and _same_bits(score, rscore)
+
+
+def test_wide_search_pod_widths_and_rechecks(gen):
+    # the pod-scale cell's widths at 2^16 points: k = 4,096 in 64 chunks,
+    # x's tile resident, tiles on every SM; indices, scores and the fused
+    # step's partials as the plain versions', and the deferred rechecks
+    # about one a point (they were ~4.8 rechecked chunk by chunk)
+    n, k, d = 1 << 16, 4096, 128
+    c = (torch.randn(k, d, generator=gen) * 4).cuda()
+    x = (c[torch.randint(0, k, (n,), generator=gen).cuda()]
+         + torch.randn(n, d, generator=gen).cuda()).contiguous()
+    p = dops.plan(n, k, d)
+    sms = dops.sm_count(x.device)
+    assert p.xres and dops.search_grid(p, sms) == min(sms, n // 128)
+    mask = (torch.arange(n) < n - 100).cuda()
+    _check_wide(x, c, mask)
+    dops.assign_clusters(x, c)
+    total, most = dops.rechecks(dops.assign_clusters)
+    assert n <= total < 2 * n and 1 <= most <= 4096
+
+
 def test_plan_bytes_match_the_library(gen):
     # ops.py plans with its own statement of the layout; the libraries own
     # it (csrc/assign_common.cuh, csrc/fused.cu)
@@ -520,10 +608,13 @@ def test_plan_bytes_match_the_library(gen):
     for n, k, d in [(1 << 20, 64, 32), (65536, 1024, 32), (300, 70, 300),
                     (64, 5, 300), (1, 1, 1), (3000, 600, 128), (10, 3, 900),
                     (300, 64, 1024), (200, 70, 1561), (150, 1, 1751),
-                    (150, 9, 1815), (100, 8, 4096), (7, 3, 9), (9, 5, 161)]:
+                    (150, 9, 1815), (100, 8, 4096), (7, 3, 9), (9, 5, 161),
+                    (1024, 4, 2048), (1 << 24, 4096, 128),
+                    (65536, 64, 192), (300, 4096, 320)]:
         p = dops.plan(n, k, d)
-        assert alib.assign_smem_bytes(d, p.tm, p.nt, p.slots,
-                                      int(p.wide)) == dops.assign_bytes(d, p)
+        assert alib.assign_smem_bytes(d, p.tm, p.nt, p.slots, int(p.wide),
+                                      p.stages, int(p.xres)
+                                      ) == dops.assign_bytes(d, p)
         assert 4 * alib.centroid_pack_floats(k, d, p.nt) == (
             -(-k // (8 * p.nt)) * dops.chunk_bytes(d, p.nt))
         fp, acc_k = fops._plan(n, k, d)

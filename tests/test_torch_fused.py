@@ -175,25 +175,104 @@ def test_search_plan_fits_a_block(n, k, d):
     for p in (ops.plan(n, k, d), fused._plan(n, k, d)[0]):
         assert p.tm % 16 == 0 and 16 <= p.tm <= 128 and p.nt in (1, 2, 4, 8)
         assert p.wide == (d > ops.WIDE_D)
-        if p.wide:  # 64-point tiles, chunks of up to 64 centroids streamed
-            assert p.tm == 64 and not p.resident
+        if p.wide:  # the sums' 64-row tiles; the search on its own grid
+            assert p.tm == 64 and not p.resident and p.slots == 0
             assert p.nt == 8 or 8 * p.nt >= k
+            if k <= 8:  # the exact form: a lane for every pair, at once
+                kp = 1 << (k - 1).bit_length()
+                assert p.stages == 0 and not p.xres and p.nt == 1
+                assert p.search_blocks == -(-n * kp // 64)
+            else:  # the TF32 form: 128-point tiles, one block an SM
+                assert 2 <= p.stages <= 8
+                assert p.search_blocks == -(-n // 128)
+                assert ops.search_grid(p, 132) == min(-(-n // 128), 132)
+                assert p.xres <= (k > 8 * p.nt)
         else:
             assert p.slots == (-(-k // (8 * p.nt)) if p.resident else 1)
+            assert (p.stages, p.xres, p.search_blocks) == (0, False, 0)
         assert p.blocks * p.tiles_per_block * p.tm >= n
         assert (p.blocks - 1) * p.tiles_per_block * p.tm < n
     assert ops.assign_bytes(d, ops.plan(n, k, d)) <= ops.MAX_SMEM
     fp, acc_k = fused._plan(n, k, d)
     assert 1 <= acc_k <= k
     assert ops.fused_bytes(d, fp, acc_k) <= ops.MAX_SMEM
+    assert ops.assign_bytes(d, fp) <= ops.MAX_SMEM
+    if fp.wide:
+        # the search: 1 KB of alignment slack, x's resident tile as TF32
+        # hi and lo images (128-row boxes), the ring of box steps (x's box
+        # unless resident, the chunk's hi and lo boxes), 2 stages + 2
+        # mbarriers, the 128 rows' best keys and recheck counts; none for
+        # the exact form.  The sums: acc_k centroids' sums and counts, and
+        # two warps' inertia
+        stage = (0 if fp.xres else 128 * 128) + 16 * fp.nt * 128
+        search = (0 if fp.stages == 0 else
+                  1024 + fp.xres * 2 * ops.boxes(d) * 128 * 128
+                  + fp.stages * stage + 8 * (2 * fp.stages + 2) + 128 * 12)
+        assert ops.assign_bytes(d, fp) == search
+        assert ops.fused_bytes(d, fp, acc_k) == 4 * acc_k * (d + 1) + 16
+        return
     # the bytes are the sum of the parts: 1 KB of alignment slack, the
-    # ring (of whole tiles, or of box steps), the chunk slots, the fused
-    # step's arrays, two mbarriers
-    ring = (4 * (64 + 16 * fp.nt) * 128 if fp.wide
-            else 2 * ops.boxes(d) * fp.tm * 128)
+    # ring of whole tiles, the chunk slots, the fused step's arrays, two
+    # mbarriers
+    ring = 2 * ops.boxes(d) * fp.tm * 128
     parts = (1024 + ring + fp.slots * ops.chunk_bytes(d, fp.nt)
              + 4 * (acc_k * (d + 1) + 3 * fp.tm) + 16)
     assert parts <= ops.fused_bytes(d, fp, acc_k) <= parts + 4
+
+
+# The wide search at the paths' shapes: the embedding fit (n 1,024, d 2,048,
+# k 4), the pod-scale K-Means step (2^24 x 128, k 4,096) whole, at a 2-shard
+# shard and at a 16-shard shard, and the "search forms" rows' wide shapes.
+@pytest.mark.parametrize("n,k,d", [(1024, 4, 2048), (1 << 24, 4096, 128),
+                                   (8118720, 4096, 128), (541248, 4096, 128),
+                                   (65536, 64, 128), (65536, 64, 192),
+                                   (16384, 64, 1024)])
+def test_wide_plan_at_the_paths_shapes(n, k, d):
+    p = ops.plan(n, k, d)
+    fp, acc_k = fused._plan(n, k, d)
+    assert p.wide and fp.wide
+    assert (p.nt, p.stages, p.xres, p.search_blocks) == (
+        fp.nt, fp.stages, fp.xres, fp.search_blocks)
+    if k <= 8:
+        # every (point, centroid) pair has a lane of its own, and every
+        # lane is in flight at once (at most 32 blocks an SM)
+        assert p.stages == 0 and p.search_blocks * 64 >= n * 4
+        assert p.search_blocks <= 132 * 32
+    else:
+        # one block on every SM of an H100 while there are tiles for it
+        assert p.search_blocks == -(-n // 128)
+        assert ops.search_grid(p, 132) == min(132, -(-n // 128))
+        # x's tile stays across the chunks where there are several and its
+        # two images fit beside a ring of two
+        assert p.xres == (k > 64 and d <= 192)
+        assert 4 <= p.stages <= 8
+    assert ops.assign_bytes(d, p) <= ops.MAX_SMEM
+    assert ops.fused_bytes(d, fp, acc_k) <= ops.MAX_SMEM
+    # block_rows is a whole number of the sums' 64-row tiles, and at the
+    # pod-scale cell it is what it was (the partials' bits stand)
+    rows = fused.block_rows(n, k, d)
+    assert rows % 64 == 0 and rows == fp.tiles_per_block * 64
+    if (n, k) == (1 << 24, 4096):
+        assert rows == 541248 and fp.blocks == 31 and acc_k == 450
+
+
+# The wide search's grid follows the card it launches on (an H100 SXM's 132
+# SMs, a PCIe card's 114, smaller cards); the plan, and so every bit, does
+# not.  The TF32 form's persistent grid takes at most a block an SM; the
+# exact form's blocks each hold their own lanes.
+@pytest.mark.parametrize("sms", [132, 114, 78, 1])
+@pytest.mark.parametrize("n,k,d", [(1024, 4, 2048), (8118720, 4096, 128),
+                                   (1, 9, 97), (65536, 64, 1024)])
+def test_wide_search_grid_follows_the_card(n, k, d, sms):
+    p = ops.plan(n, k, d)
+    grid = ops.search_grid(p, sms)
+    if p.stages == 0:
+        assert grid == p.search_blocks and grid * 64 >= n * 4
+    else:
+        assert 1 <= grid <= sms and grid == min(sms, p.search_blocks)
+        assert p.search_blocks == -(-n // 128)
+    assert p == ops.plan(n, k, d)
+    assert fused._plan(n, k, d)[0].search_blocks == p.search_blocks
 
 
 def test_search_plan_keeps_the_widest_rows():
