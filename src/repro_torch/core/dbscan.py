@@ -37,6 +37,7 @@ from repro_torch.kernels.neighbor.ref import (
     epsilon_degree_ref,
     expand_frontier_ref,
 )
+from repro_torch.runtime import spans
 
 # --- the paper's int16 state word ------------------------------------------
 
@@ -55,7 +56,7 @@ MAX_CLUSTER_ID = np.iinfo(np.int16).max >> CLUSTER_SHIFT
 def pack_state(labels: torch.Tensor, visited: torch.Tensor,
                member: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
     """Pack per-point state into the paper's int16 word."""
-    mx = int(labels.max()) if labels.numel() else 0
+    mx = int(spans.read(labels.max())) if labels.numel() else 0
     if mx > MAX_CLUSTER_ID:
         raise ValueError(
             f"cluster id {mx} does not fit the paper's int16 state word "
@@ -191,11 +192,12 @@ def fit_resumable(
     never be core points (with min_pts=1 an isolated pad row would
     otherwise seed a phantom singleton cluster).
     """
-    deg = _degree(x, cfg)            # kernel launch 1 (main loop kernel)
-    return expand_clusters(
-        deg, lambda frontier: _expand(x, frontier, cfg), cfg, token,
-        state=state, valid_mask=valid_mask, on_progress=on_progress,
-        on_state=on_state, state_interval=state_interval)
+    with spans.span("repro_torch.dbscan.fit"):
+        deg = _degree(x, cfg)        # kernel launch 1 (main loop kernel)
+        return expand_clusters(
+            deg, lambda frontier: _expand(x, frontier, cfg), cfg, token,
+            state=state, valid_mask=valid_mask, on_progress=on_progress,
+            on_state=on_state, state_interval=state_interval)
 
 
 def expand_clusters(
@@ -252,17 +254,19 @@ def expand_clusters(
 
     while True:
         # inner: expand the in-flight cluster's frontier to exhaustion
-        while bool(frontier.any()):
+        while size := spans.read(frontier.sum()):
             if _poll():
                 cancelled = True
                 break
-            reached = expand(frontier)  # expansion kernel launch
-            nexp += 1
-            new = reached & (labels == 0)
-            labels = torch.where(new, cid, labels)
-            visited = visited | new
-            member = member | new
-            frontier = new & core
+            with spans.span("repro_torch.dbscan.expand"):
+                spans.count("frontier_points", size)
+                reached = expand(frontier)  # expansion kernel launch
+                nexp += 1
+                new = reached & (labels == 0)
+                labels = torch.where(new, cid, labels)
+                visited = visited | new
+                member = member | new
+                frontier = new & core
             if on_progress is not None:
                 on_progress(cid, nexp)
             if on_state is not None and nexp % state_interval == 0:
@@ -273,26 +277,32 @@ def expand_clusters(
             cancelled = True
             break
         # outer: seed the next cluster at the lowest-index unvisited core pt
-        todo = core & ~visited
-        if not bool(todo.any()):
-            break
-        cid += 1
-        if cid > MAX_CLUSTER_ID:
-            raise ValueError(
-                f"dataset produced more than {MAX_CLUSTER_ID} clusters — the "
-                f"paper's int16 state word cannot represent cluster id {cid}"
-            )
-        frontier = torch.zeros((n,), dtype=torch.bool, device=dev)
-        frontier[torch.argmax(todo.to(torch.uint8))] = True  # first True
+        with spans.span("repro_torch.dbscan.seed"):
+            todo = core & ~visited
+            if not spans.read(todo.any()):
+                break
+            cid += 1
+            if cid > MAX_CLUSTER_ID:
+                raise ValueError(
+                    f"dataset produced more than {MAX_CLUSTER_ID} clusters — "
+                    f"the paper's int16 state word cannot represent cluster "
+                    f"id {cid}"
+                )
+            frontier = torch.zeros((n,), dtype=torch.bool, device=dev)
+            # the first True: indexing reads a 0-d index to the host, and
+            # True is copied from the host, a copy that waits on the card
+            first = spans.read(torch.argmax(todo.to(torch.uint8)))
+            spans.synced(frontier.__setitem__, first, True)
 
-    packed = pack_state(labels, visited, member, core)
-    result = DBSCANResult(
-        labels=finish(packed),
-        core_mask=core,
-        n_clusters=torch.tensor(cid, dtype=torch.int32),
-        expansions=torch.tensor(nexp, dtype=torch.int32),
-        cancelled=cancelled,
-    )
+    with spans.span("repro_torch.dbscan.finish"):
+        packed = pack_state(labels, visited, member, core)
+        result = DBSCANResult(
+            labels=finish(packed),
+            core_mask=core,
+            n_clusters=torch.tensor(cid, dtype=torch.int32),
+            expansions=torch.tensor(nexp, dtype=torch.int32),
+            cancelled=cancelled,
+        )
     return result, (_snapshot() if cancelled else None)
 
 

@@ -36,6 +36,7 @@ from repro_torch.core.cancellation import CancellationToken
 from repro_torch.kernels.distance.fused import fused_masked_assign_update
 from repro_torch.kernels.distance.ops import assign_clusters
 from repro_torch.kernels.distance.ref import assign_clusters_ref
+from repro_torch.runtime import spans
 
 # Paper defaults.
 PAPER_TOL = 1e-6
@@ -105,15 +106,17 @@ def _update_centroids(x, assign, k: int, c_old):
 def kmeans_step(x, c, cfg: KMeansConfig):
     """(assignment, new centroids, displacement, inertia)."""
     assign, d2 = _assign(x, c, cfg)
-    c_new = _update_centroids(x, assign, cfg.k, c)
-    shift = torch.sum(torch.abs(c_new - c))
+    with spans.span("repro_torch.kmeans.update"):
+        c_new = _update_centroids(x, assign, cfg.k, c)
+        shift = torch.sum(torch.abs(c_new - c))
     return assign, c_new, shift, torch.sum(d2)
 
 
 def update_from_partials(c, sums, counts):
     """(new centroids, displacement) from the masked sums and counts."""
-    c_new = _new_centroids(sums, counts, c)
-    return c_new, torch.sum(torch.abs(c_new - c))
+    with spans.span("repro_torch.kmeans.update"):
+        c_new = _new_centroids(sums, counts, c)
+        return c_new, torch.sum(torch.abs(c_new - c))
 
 
 def masked_partials(x, c, mask, cfg: KMeansConfig):
@@ -201,22 +204,27 @@ def fit(seed: Seed, x: torch.Tensor, cfg: KMeansConfig) -> KMeansResult:
     that step; :func:`fit_cancellable`, like the reference's, runs a NaN
     shift on to ``max_iters``.
     """
-    c = init_centroids(seed, x, cfg)
-    assign = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    inertia = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
-    shift_f, it = float("inf"), 0
-    while shift_f >= cfg.tol and it < cfg.max_iters:
-        assign, c, shift, inertia = kmeans_step(x, c, cfg)
-        shift_f = float(shift)
-        it += 1
-    return KMeansResult(
-        centroids=c,
-        labels=assign.to(torch.int16),
-        inertia=inertia,
-        iterations=torch.tensor(it, dtype=torch.int32),
-        converged=torch.tensor(shift_f < cfg.tol),
-        cancelled=False,
-    )
+    with spans.span("repro_torch.kmeans.fit"):
+        c = init_centroids(seed, x, cfg)
+        assign = torch.zeros((x.shape[0],), dtype=torch.int32,
+                             device=x.device)
+        # a host value copied to the card: the copy waits on it
+        inertia = spans.synced(torch.tensor, float("inf"),
+                               dtype=torch.float32, device=x.device)
+        shift_f, it = float("inf"), 0
+        while shift_f >= cfg.tol and it < cfg.max_iters:
+            with spans.span("repro_torch.kmeans.step"):
+                assign, c, shift, inertia = kmeans_step(x, c, cfg)
+                shift_f = spans.read(shift)
+            it += 1
+        return KMeansResult(
+            centroids=c,
+            labels=assign.to(torch.int16),
+            inertia=inertia,
+            iterations=torch.tensor(it, dtype=torch.int32),
+            converged=torch.tensor(shift_f < cfg.tol),
+            cancelled=False,
+        )
 
 
 def fit_cancellable(
@@ -236,33 +244,38 @@ def fit_cancellable(
     counter, both of which live in the returned result — checkpoint those,
     pass them back in, and the loop continues exactly where it stopped.
     """
-    c = (torch.as_tensor(centroids, dtype=torch.float32, device=x.device)
-         if centroids is not None else init_centroids(seed, x, cfg))
-    assign = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    inertia = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
-    it = start_iteration
-    converged = False
-    cancelled = False
-    for it in range(start_iteration + 1, cfg.max_iters + 1):
-        if token is not None and token.cancelled():
-            cancelled = True
-            it -= 1
-            break
-        assign, c, shift, inertia = kmeans_step(x, c, cfg)
-        shift_f = float(shift)
-        if on_progress is not None:
-            on_progress(it, shift_f)
-        if shift_f < cfg.tol:
-            converged = True
-            break
-    return KMeansResult(
-        centroids=c,
-        labels=assign.to(torch.int16),
-        inertia=inertia,
-        iterations=torch.tensor(it, dtype=torch.int32),
-        converged=torch.tensor(converged),
-        cancelled=cancelled,
-    )
+    with spans.span("repro_torch.kmeans.fit"):
+        c = (torch.as_tensor(centroids, dtype=torch.float32, device=x.device)
+             if centroids is not None else init_centroids(seed, x, cfg))
+        assign = torch.zeros((x.shape[0],), dtype=torch.int32,
+                             device=x.device)
+        # a host value copied to the card: the copy waits on it
+        inertia = spans.synced(torch.tensor, float("inf"),
+                               dtype=torch.float32, device=x.device)
+        it = start_iteration
+        converged = False
+        cancelled = False
+        for it in range(start_iteration + 1, cfg.max_iters + 1):
+            if token is not None and token.cancelled():
+                cancelled = True
+                it -= 1
+                break
+            with spans.span("repro_torch.kmeans.step"):
+                assign, c, shift, inertia = kmeans_step(x, c, cfg)
+                shift_f = spans.read(shift)
+            if on_progress is not None:
+                on_progress(it, shift_f)
+            if shift_f < cfg.tol:
+                converged = True
+                break
+        return KMeansResult(
+            centroids=c,
+            labels=assign.to(torch.int16),
+            inertia=inertia,
+            iterations=torch.tensor(it, dtype=torch.int32),
+            converged=torch.tensor(converged),
+            cancelled=cancelled,
+        )
 
 
 @dataclasses.dataclass

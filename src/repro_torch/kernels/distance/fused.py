@@ -46,6 +46,7 @@ from repro_torch.kernels.distance.ref import (
     fused_masked_partials_ref,
     reduce_partials_ref,
 )
+from repro_torch.runtime import spans
 
 # At most this many partial floats in all.
 _MAX_PARTIAL_FLOATS = 1 << 24
@@ -258,7 +259,8 @@ def fused_masked_assign_update(
                             device=x.device)
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 *_split(zeros, k, d))
-    idx, out = _launch(x, c, mask)
+    with spans.span("repro_torch.kernels.fused_masked_assign_update"):
+        idx, out = _launch(x, c, mask)
     return (idx, *_split(out, k, d))
 
 
@@ -281,7 +283,8 @@ def fused_masked_partials(
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 torch.empty((0, k * d + k + 1), dtype=torch.float32,
                             device=x.device))
-    return _launch(x, c, mask, rows_per_block)
+    with spans.span("repro_torch.kernels.fused_masked_partials"):
+        return _launch(x, c, mask, rows_per_block)
 
 
 def reduce_partials(part: torch.Tensor, k: int, d: int):
@@ -298,14 +301,15 @@ def reduce_partials(part: torch.Tensor, k: int, d: int):
         return _split(_reduce_shape(part, k, d), k, d)
     if not part.is_cuda:
         return reduce_partials_ref(part, k, d)
-    out = torch.empty(stride, dtype=torch.float32, device=part.device)
-    lib = _lib()
-    with torch.cuda.device(part.device):
-        stream = torch.cuda.current_stream(part.device).cuda_stream
-        err = lib.fused_reduce_partials(part.data_ptr(), part.shape[0],
-                                        stride, out.data_ptr(), stream)
-    _build.check(lib, err, "reduce_partials")
-    reduce_partials.launches += 1
+    with spans.span("repro_torch.kernels.reduce_partials"):
+        out = torch.empty(stride, dtype=torch.float32, device=part.device)
+        lib = _lib()
+        with torch.cuda.device(part.device):
+            stream = torch.cuda.current_stream(part.device).cuda_stream
+            err = lib.fused_reduce_partials(part.data_ptr(), part.shape[0],
+                                            stride, out.data_ptr(), stream)
+        _build.check(lib, err, "reduce_partials")
+        reduce_partials.launches += 1
     return _split(out, k, d)
 
 

@@ -33,6 +33,7 @@ from repro_torch.kernels.distance.ref import (
     assign_scores_ref,
     pairwise_sq_dists_ref,
 )
+from repro_torch.runtime import spans
 
 # A block's shared memory: 227 KB on Hopper.
 MAX_SMEM = 232448
@@ -317,7 +318,8 @@ def assign_clusters(x: torch.Tensor, c: torch.Tensor, *,
     _check_inputs(x, c)
     xf, cf = x.float(), c.float()
     if x.is_cuda:
-        return _launch(xf, cf, with_dists)
+        with spans.span("repro_torch.kernels.assign_clusters"):
+            return _launch(xf, cf, with_dists)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     idx, score = assign_scores_ref(xf, cf)

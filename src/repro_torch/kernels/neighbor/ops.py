@@ -35,6 +35,7 @@ from repro_torch.kernels.neighbor.ref import (
     expand_frontier_ref,
     pack_ksteps,
 )
+from repro_torch.runtime import spans
 
 # A block's shared memory: 227 KB on Hopper.
 MAX_SMEM = 232448
@@ -129,32 +130,34 @@ def _launch(fn, x: torch.Tensor, eps: float, out: torch.Tensor,
             cols: Optional[torch.Tensor] = None) -> None:
     """One launch of ``fn``: over x, or (``cols``) x's rows against the
     columns ``cols``; ``frontier`` flags the columns for the expansion."""
-    n, d = x.shape
-    expand = frontier is not None
-    nc = None if cols is None else cols.shape[0]
-    scratch = torch.empty(_scratch_floats(n, d, expand, nc),
-                          dtype=torch.float32, device=x.device)
-    stats = torch.empty(2, dtype=torch.int64, device=x.device)
-    lib = _lib()
-    eps2 = eps_squared(eps)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = (scratch.data_ptr(), out.data_ptr(), stats.data_ptr(), stream)
-        if cols is not None and expand:
-            err = lib.expand_frontier_cross(x.data_ptr(), n, cols.data_ptr(),
-                                            frontier.data_ptr(), nc, d, eps2,
-                                            *ptrs)
-        elif cols is not None:
-            err = lib.epsilon_degree_cross(x.data_ptr(), n, cols.data_ptr(),
-                                           nc, d, eps2, *ptrs)
-        elif expand:
-            err = lib.expand_frontier(x.data_ptr(), frontier.data_ptr(), n, d,
-                                      eps2, *ptrs)
-        else:
-            err = lib.epsilon_degree(x.data_ptr(), n, d, eps2, *ptrs)
-    _build.check(lib, err, fn.__name__)
-    fn.launches += 1
-    fn.recheck_stats = stats
+    with spans.span(f"repro_torch.kernels.{fn.__name__}"):
+        n, d = x.shape
+        expand = frontier is not None
+        nc = None if cols is None else cols.shape[0]
+        scratch = torch.empty(_scratch_floats(n, d, expand, nc),
+                              dtype=torch.float32, device=x.device)
+        stats = torch.empty(2, dtype=torch.int64, device=x.device)
+        lib = _lib()
+        eps2 = eps_squared(eps)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            ptrs = (scratch.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                    stream)
+            if cols is not None and expand:
+                err = lib.expand_frontier_cross(
+                    x.data_ptr(), n, cols.data_ptr(), frontier.data_ptr(),
+                    nc, d, eps2, *ptrs)
+            elif cols is not None:
+                err = lib.epsilon_degree_cross(
+                    x.data_ptr(), n, cols.data_ptr(), nc, d, eps2, *ptrs)
+            elif expand:
+                err = lib.expand_frontier(
+                    x.data_ptr(), frontier.data_ptr(), n, d, eps2, *ptrs)
+            else:
+                err = lib.epsilon_degree(x.data_ptr(), n, d, eps2, *ptrs)
+        _build.check(lib, err, fn.__name__)
+        fn.launches += 1
+        fn.recheck_stats = stats
 
 
 def epsilon_degree(x: torch.Tensor, eps: float) -> torch.Tensor:
