@@ -18,11 +18,17 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    the same shape with the last 25% of rows masked, and at k = 1024,
    n = 65536 (indices equal to the plain version's and to the assignment
    kernel's, counts exact, sums and inertia within 1e-4 relative, two
-   launches bitwise equal); eps-degree and expansion with a ~5% frontier
-   at the one-job path's n = 65536 (d = 4, eps = 2), at the service's
-   shape (its first DBSCAN request padded to the bucket, n = 16384, with
-   the far-diagonal pads) and at n = 2048: both equal to the plain
-   versions (torch.equal), two launches bitwise equal, each timed beside
+   launches bitwise equal); the one-job step's narrow-row sums at the
+   kmeans-d4 cell's n = 2^24, d = 4, k = 8 and at quickstart's n = 6144,
+   d = 2, k = 6 (bit for bit its plain model, counts exact, within
+   fp32 rounding of the float64 sums, two launches bitwise equal; timed
+   beside the model and the one-hot product it replaced, its launches
+   those of quickstart and mine_cluster); eps-degree and expansion with a
+   ~5% frontier at the one-job path's n = 65536 (d = 4, eps = 2), at the
+   service's shape (its first DBSCAN request padded to the bucket,
+   n = 16384, with the far-diagonal pads) and at n = 2048: both equal to
+   the plain versions (torch.equal), two launches bitwise equal, each
+   timed beside
    its plain version and a composed cdist yardstick, the exact rechecks
    per pair scored, the host time a call and (profiler) the device time
    a call logged; the cross entries (rows of one shard against the
@@ -310,6 +316,11 @@ ASSIGN_SHAPE = dict(features=32, clusters=64, size=16384)   # n = 2^20
 DBSCAN_SHAPE = dict(features=4, clusters=8, size=8192)      # n = 65536
 FRONTIER_FRACTION = 0.05
 FUSED_MASKED_FRACTION = 0.25
+# The one-job step's narrow-row sums at the shapes its paths give it: the
+# kmeans-d4 benchmark cell's 2^24 rows of 4 features with k = 8, and
+# quickstart's 6,144 rows of 2 features with k = 6.
+LLOYD_SHAPES = (dict(features=4, clusters=8, size=1 << 21),
+                dict(features=2, clusters=6, size=1024))
 FUSED_LARGE_K = dict(n=65536, k=1024)
 # Both K-Means kernels either side of the plan's choice of search form
 # (d > 96 is wide), at a common embedding width, and at the embedding
@@ -930,6 +941,85 @@ def kernel_fused(torch, mods, sass: dict) -> dict:
                 library_call="cdist(x, c).argmin(1) + masked one-hot "
                              "matmul (composed)",
                 launch_shape=list(fops.launch_shape(n, k, d)))
+
+
+def kernel_lloyd(torch, mods) -> dict:
+    """The narrow-row sums (``fops.lloyd_sums``) at each of LLOYD_SHAPES,
+    on the paper's blobs labelled by the assignment kernel against k of
+    their rows: bit for bit its plain model (``dref.lloyd_sums_ref``, run
+    on the card), counts exact, sums within m u sum |x| of the float64
+    sums (m additions on the longest path), two launches bitwise equal.
+    Times the kernel and pass 2 (CUDA-graph replays; queued calls by
+    events), the plain model, and the one-hot product it replaced
+    (``kmeans._weighted_sums``) as the library call.  The row's numbers
+    are the first shape's."""
+    fops, dops, dref, synth, kmeans = (mods["fops"], mods["dops"],
+                                       mods["dref"], mods["synth"],
+                                       mods["kmeans"])
+    shapes = []
+    for shape in LLOYD_SHAPES:
+        x, _, _ = synth.make_blobs(
+            torch.Generator(device=DEV).manual_seed(SEED),
+            spec_of(synth, shape), device=DEV)
+        n, d = x.shape
+        k = shape["clusters"]
+        c = x[:k].clone()           # the rows are shuffled
+        idx, _ = dops.assign_clusters(x, c, with_dists=False)
+        blocks = fops.lloyd_blocks(n)
+        sums, counts = fops.lloyd_sums(x, idx, k)
+        again = fops.lloyd_sums(x, idx, k)
+        rsums, rcounts = dref.lloyd_sums_ref(x, idx, k, blocks)
+        exact = torch.zeros((k, d), dtype=torch.float64, device=DEV)
+        scale = torch.zeros_like(exact)
+        exact.index_add_(0, idx.long(), x.double())
+        scale.index_add_(0, idx.long(), x.double().abs())
+        bins = torch.bincount(idx.long(), minlength=k).float()
+        torch.cuda.synchronize()
+        m = (-(-n // (blocks * dref.LLOYD_THREADS)) + 5 + 7
+             + -(-blocks // dref.REDUCE_RUNS) + dref.REDUCE_RUNS - 1)
+        dev = (sums.double() - exact).abs()
+        err = float(dev.max())
+        what = f"lloyd_sums n={n} d={d} k={k}"
+        check(bool(torch.equal(sums, rsums))
+              and bool(torch.equal(counts, rcounts)),
+              f"{what}: differs from its plain model")
+        check(bool(torch.equal(again[0], sums))
+              and bool(torch.equal(again[1], counts)),
+              f"{what}: two launches differ")
+        check(bool(torch.equal(counts, bins)), f"{what}: counts not exact")
+        check(bool((dev <= 1.01 * m * 2.0 ** -24 * scale).all()),
+              f"{what}: sums {err} from the float64 sums, past m u sum|x| "
+              f"(m = {m})")
+        ms = graph_ms(torch, lambda: fops.lloyd_sums(x, idx, k))
+        events = time_ms(torch, lambda: fops.lloyd_sums(x, idx, k), reps=50)
+        plain = time_ms(
+            torch, lambda: dref.lloyd_sums_ref(x, idx, k, blocks), reps=3)
+        lib = time_ms(torch, lambda: kmeans._weighted_sums(x, idx, k),
+                      reps=10)
+        b, by = bound(n * (4 * d + 4), n * d)
+        shapes.append(dict(shape=f"n={n} d={d} k={k}", blocks=blocks,
+                           ms=ms, events_ms=events, plain_ms=plain,
+                           library_ms=lib, bound_ms=b, bound_by=by,
+                           max_abs_err=err))
+        log(f"{what}: {blocks} blocks, equal to its plain model bit for "
+            f"bit, counts exact, max |sums - float64| {err!r}; device "
+            f"{ms!r} ms (queued {events!r}), bound {b!r} ms ({by}), plain "
+            f"{plain!r} ms, one-hot product {lib!r} ms")
+        del x, c, idx, exact, scale, dev, sums, rsums, again
+        torch.cuda.empty_cache()
+    first = shapes[0]
+    return dict(name="lloyd_sums", route="cuda",
+                source="src/repro_torch/csrc/fused.cu",
+                replaces="none (the reference's update, "
+                         "src/repro/core/kmeans.py:84, is one_hot + einsum)",
+                max_abs_err=first["max_abs_err"], ms=first["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["library_ms"],
+                events_ms=first["events_ms"],
+                library_call="kmeans._weighted_sums: (n, k) one-hot, "
+                             "onehot.T @ x, onehot.sum(0)",
+                shape=first["shape"], shapes=shapes,
+                launch_shape=[first["blocks"], dref.LLOYD_THREADS])
 
 
 def _service_dbscan_item(mods):
@@ -1922,8 +2012,9 @@ def training_path(torch, mods, counters, card: str) -> dict:
                 launches=full["launches"])
 
 
-def _launch_counts(counters, names=("assign_clusters", "epsilon_degree",
-                                    "expand_frontier")) -> dict:
+def _launch_counts(counters, names=("assign_clusters", "lloyd_sums",
+                                    "epsilon_degree", "expand_frontier")
+                   ) -> dict:
     return {name: counters[name].launches for name in names}
 
 
@@ -1938,9 +2029,11 @@ def examples_quickstart_mine(torch, mods, counters) -> dict:
     wall_qs = time.time() - t0
     qs_launches = _launch_counts(counters)
     kres, dres, x = out["kmeans"], out["dbscan"], out["x"]
-    check(qs_launches["assign_clusters"] == int(kres.iterations) >= 1,
-          f"quickstart: {qs_launches['assign_clusters']} assignment launches "
-          f"for {int(kres.iterations)} iterations")
+    check(qs_launches["assign_clusters"] == int(kres.iterations) >= 1
+          and qs_launches["lloyd_sums"] == int(kres.iterations),
+          f"quickstart: {qs_launches['assign_clusters']} assignment and "
+          f"{qs_launches['lloyd_sums']} narrow-row sums launches for "
+          f"{int(kres.iterations)} iterations")
     check(qs_launches["epsilon_degree"] == 1
           and qs_launches["expand_frontier"] == int(dres.expansions) >= 1,
           f"quickstart: DBSCAN launches {qs_launches} for "
@@ -1995,6 +2088,7 @@ def examples_quickstart_mine(torch, mods, counters) -> dict:
     check(states == ["SUCCEEDED"] * len(plain) + [canc["final_state"]],
           f"mine_cluster job store read back {states}")
     check(mc_launches["assign_clusters"] == iters
+          and mc_launches["lloyd_sums"] == iters
           and mc_launches["epsilon_degree"] == len(mc.GRID) + 1
           and mc_launches["expand_frontier"]
           == expansions + cancel_expansions,
@@ -4036,6 +4130,7 @@ def load_modules() -> tuple:
                 "epsilon_degree_cross": nops.epsilon_degree_cross,
                 "expand_frontier_cross": nops.expand_frontier_cross,
                 "reduce_partials": fops.reduce_partials,
+                "lloyd_sums": fops.lloyd_sums,
                 "flash_attention": aops.flash_attention}
     return mods, counters
 
@@ -4068,7 +4163,8 @@ def main() -> int:
         try:
             sass = build(_build)
             rows = [kernel_assign(torch, mods, sass["distance"]),
-                    kernel_fused(torch, mods, sass["fused"])]
+                    kernel_fused(torch, mods, sass["fused"]),
+                    kernel_lloyd(torch, mods)]
             wide_rows(torch, mods)
             rows += [*kernel_neighbor(torch, mods, sass["neighbor"]),
                      *kernel_cross(torch, mods, sass["neighbor"]),
@@ -4151,6 +4247,8 @@ def main() -> int:
         launches[name] += n
     launches["fused_masked_partials_pod"] = pod_launches[
         "fused_masked_assign_update"]
+    # the narrow-row sums run on the examples' one-job fits alone
+    launches["lloyd_sums"] = ex_launches["lloyd_sums"]
     ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -11,9 +11,17 @@ Paper semantics kept exactly (§II.C):
 - the per-point cluster id is stored in a 16-bit word (int16 labels);
 - an empty cluster keeps its old center (the paper does not respawn).
 
-The centroid update is one-hot(assign)^T . X, a (k, n) x (n, d) matrix
-product left to ``torch.matmul`` — not a scatter with float atomics, which
-would make the sums change from run to run.
+The centroid update needs each centroid's sums and counts.  On the card,
+for narrow rows (``fused.narrow_rows``: k <= 8, d <= 4, n <= 2^24, the
+paper's shapes), the step takes them from ``csrc/fused.cu``'s narrow-row
+kernel (:func:`~repro_torch.kernels.distance.fused.lloyd_sums`), one read
+of x and the labels in a fixed order.  Everywhere else (CPU tensors, the
+plain ``use_kernel=False`` configs, the masked and weighted steps, wider
+rows or more centroids) they are one-hot(assign)^T . X, a (k, n) x (n, d)
+matrix product left to ``torch.matmul``.  Neither is a scatter with float
+atomics, which would make the sums change from run to run.  The two split
+on NaN input: the kernel adds a NaN row to its own centroid's sums only,
+the product to every centroid's.
 
 Loops run on the host: :func:`fit` to the stop rule, and
 :func:`fit_cancellable` polling a
@@ -33,7 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.cancellation import CancellationToken
-from repro_torch.kernels.distance.fused import fused_masked_assign_update
+from repro_torch.kernels.distance.fused import (
+    fused_masked_assign_update,
+    lloyd_sums,
+    narrow_rows,
+)
 from repro_torch.kernels.distance.ops import assign_clusters
 from repro_torch.kernels.distance.ref import assign_clusters_ref
 from repro_torch.runtime import spans
@@ -90,6 +102,15 @@ def _weighted_sums(x, assign, k: int, w=None):
     return onehot.T @ x.float(), onehot.sum(0)
 
 
+def _takes_lloyd_kernel(x, cfg: KMeansConfig) -> bool:
+    """Whether the unweighted step's sums go to the narrow-row kernel: a
+    kernel config, contiguous float32 rows on the card, and
+    ``fused.narrow_rows``."""
+    return (cfg.use_kernel and x.is_cuda and x.dtype == torch.float32
+            and x.is_contiguous()
+            and narrow_rows(x.shape[0], cfg.k, x.shape[1]))
+
+
 def _new_centroids(sums, counts, c_old):
     has_pts = counts > 0
     safe = torch.where(has_pts, counts, torch.ones_like(counts))[:, None]
@@ -107,7 +128,10 @@ def kmeans_step(x, c, cfg: KMeansConfig):
     """(assignment, new centroids, displacement, inertia)."""
     assign, d2 = _assign(x, c, cfg)
     with spans.span("repro_torch.kmeans.update"):
-        c_new = _update_centroids(x, assign, cfg.k, c)
+        if _takes_lloyd_kernel(x, cfg):
+            c_new = _new_centroids(*lloyd_sums(x, assign, cfg.k), c)
+        else:
+            c_new = _update_centroids(x, assign, cfg.k, c)
         shift = torch.sum(torch.abs(c_new - c))
     return assign, c_new, shift, torch.sum(d2)
 
@@ -329,7 +353,10 @@ def minibatch_init(seed: Seed, x0: torch.Tensor,
 def _minibatch_update(c, counts, xb, cfg: KMeansConfig):
     """One Sculley step: per-cluster learning rate 1/count."""
     assign, d2 = _assign(xb, c, cfg)
-    bsums, bcounts = _weighted_sums(xb, assign, cfg.k)
+    if _takes_lloyd_kernel(xb, cfg):
+        bsums, bcounts = lloyd_sums(xb, assign, cfg.k)
+    else:
+        bsums, bcounts = _weighted_sums(xb, assign, cfg.k)
     counts_new = counts + bcounts
     lr = torch.where(bcounts > 0, bcounts / torch.clamp_min(counts_new, 1.0),
                      torch.zeros_like(bcounts))

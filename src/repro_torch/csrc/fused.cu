@@ -1,5 +1,7 @@
 // Fused masked Lloyd step on Hopper (sm_90a): assignment plus the masked
-// per-centroid sums, counts and inertia the centroid update needs.
+// per-centroid sums, counts and inertia the centroid update needs.  Beside
+// it, the one-job step's sums for narrow rows (lloyd_sums_kernel, with its
+// own note below), which share pass 2.
 //
 // Replaces the TPU kernel _fused_step_kernel
 // (src/repro/kernels/distance/fused.py:42, launched by fused_step_kernel at
@@ -413,6 +415,150 @@ wide_sums_kernel(const float* __restrict__ x,
   }
 }
 
+// The one-job Lloyd step's sums for narrow rows (core/kmeans.py's step and
+// mini-batch step, when k <= kLloydK and d <= kLloydD): the sums and
+// counts of x's rows by their labels, for the centroid update.  It
+// replaces no TPU kernel: the reference updates by jax.nn.one_hot and an
+// einsum, which the port ran as an (n, k) fp32 one-hot and a GEMM on the
+// CUDA cores (2.15 ms at 2^24 rows of 4 features, k = 8, on an H100).
+//
+// What bounds it: reading x and the labels once, n (4 d + 4) bytes, 0.100
+// ms at that shape; it takes 0.118 there, plus 0.002 for pass 2.
+//
+// One form, kLloydK x kLloydD sums a thread: the paper's K-Means (2 to 4
+// features, up to 8 clusters), which is every narrow shape a workload
+// runs (the kmeans-d4 cell, the examples' quickstart and mine_cluster).
+// Wider forms up to k (d + 1) = 64 beat the product too on an H100
+// (PERF.md), but no workload runs them, so they keep the product.
+//
+// Design:
+// - Each thread keeps every centroid's sums (kLloydK x kLloydD floats) and
+//   counts (integers) in registers.  It walks rows r, r + T, r + 2T, ...
+//   (T the grid's threads), the loads of kLloydRows rows in flight
+//   together, the adds in row order: a row goes to centroid j's sums when
+//   its label is j, one select a sum, so no register array is indexed at
+//   run time.  Rows of 4 features load as one float4 when x is 16-byte
+//   aligned.
+// - The warp adds its lanes by a fixed xor tree, the block its warps in
+//   order, and each block writes its partial [sums (k d) | counts (k) | 0]
+//   to its own slice, the layout of the fused step's; pass 2 is
+//   reduce_partials_kernel.  No float atomics, and the grid is a function
+//   of n alone (the wrapper's), so the same inputs give the same bits on
+//   every run and every card (ref.lloyd_sums_ref models the order).
+// - Counts stay integers to the end: exact, and their floats exact below
+//   2^24 rows, which the wrapper enforces.
+// - A NaN row adds NaN to its own centroid's sums only, as
+//   fused_partials_kernel does; the one-hot product spreads it to every
+//   centroid (0 x NaN).
+constexpr int kLloydThreads = 256;
+constexpr int kLloydWarps = kLloydThreads / 32;
+constexpr int kLloydK = 8;     // centroids at most
+constexpr int kLloydD = 4;     // features at most
+constexpr int kLloydRows = 4;  // rows in flight a thread
+static_assert(kLloydD == 4, "a row is one float4");
+
+__global__ void __launch_bounds__(kLloydThreads)
+lloyd_sums_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                  int n, int k, int d, int vec, float* __restrict__ part) {
+  __shared__ float wsum[kLloydWarps][kLloydK * kLloydD];
+  __shared__ int wcnt[kLloydWarps][kLloydK];
+  float acc[kLloydK][kLloydD];
+  int cnt[kLloydK];
+#pragma unroll
+  for (int j = 0; j < kLloydK; ++j) {
+    cnt[j] = 0;
+#pragma unroll
+    for (int f = 0; f < kLloydD; ++f) acc[j][f] = 0.f;
+  }
+  const int step = gridDim.x * kLloydThreads;
+  for (int r0 = blockIdx.x * kLloydThreads + threadIdx.x; r0 < n;
+       r0 += kLloydRows * step) {
+    float v[kLloydRows][kLloydD];
+    int lab[kLloydRows];
+#pragma unroll
+    for (int u = 0; u < kLloydRows; ++u) {
+      const int r = r0 + u * step;
+      const bool in = r < n;
+      lab[u] = in ? __ldg(idx + r) : -1;
+      const float* row = x + (size_t)(in ? r : 0) * d;
+      if (vec) {
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in) t = __ldg(reinterpret_cast<const float4*>(row));
+        v[u][0] = t.x;
+        v[u][1] = t.y;
+        v[u][2] = t.z;
+        v[u][3] = t.w;
+      } else {
+#pragma unroll
+        for (int f = 0; f < kLloydD; ++f) {
+          v[u][f] = in && f < d ? __ldg(row + f) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLloydRows; ++u) {
+#pragma unroll
+      for (int j = 0; j < kLloydK; ++j) {
+        const bool hit = lab[u] == j;
+        cnt[j] += hit ? 1 : 0;
+#pragma unroll
+        for (int f = 0; f < kLloydD; ++f) {
+          acc[j][f] = hit ? __fadd_rn(acc[j][f], v[u][f]) : acc[j][f];
+        }
+      }
+    }
+  }
+
+  // the lanes by a fixed xor tree (every lane ends with the same bits)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kLloydK; ++j) {
+    if (j < k) {
+#pragma unroll
+      for (int o = 16; o; o >>= 1) {
+        cnt[j] += __shfl_xor_sync(0xffffffffu, cnt[j], o);
+      }
+#pragma unroll
+      for (int f = 0; f < kLloydD; ++f) {
+        if (f < d) {
+#pragma unroll
+          for (int o = 16; o; o >>= 1) {
+            acc[j][f] = __fadd_rn(acc[j][f],
+                                  __shfl_xor_sync(0xffffffffu, acc[j][f], o));
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kLloydK; ++j) {
+      if (j < k) {
+        wcnt[warp][j] = cnt[j];
+#pragma unroll
+        for (int f = 0; f < kLloydD; ++f) {
+          if (f < d) wsum[warp][j * d + f] = acc[j][f];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // then the warps in order
+  const int stride = k * d + k + 1;
+  float* mine = part + (size_t)blockIdx.x * stride;
+  for (int e = threadIdx.x; e < k * d; e += kLloydThreads) {
+    float s = wsum[0][e];
+    for (int w = 1; w < kLloydWarps; ++w) s = __fadd_rn(s, wsum[w][e]);
+    mine[e] = s;
+  }
+  for (int e = threadIdx.x; e < k; e += kLloydThreads) {
+    int c = 0;
+    for (int w = 0; w < kLloydWarps; ++w) c += wcnt[w][e];
+    mine[k * d + e] = (float)c;  // exact below 2^24
+  }
+  if (threadIdx.x == 0) mine[k * d + k] = 0.f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -492,6 +638,18 @@ int launch_reduce(const void* part, int blocks, int stride, void* out,
   return (int)cudaGetLastError();
 }
 
+// The narrow-row sums' pass 1: one partial a block of `blocks`.
+int launch_lloyd(const void* x, const void* idx, int n, int k, int d,
+                 int blocks, void* part, cudaStream_t s) {
+  if (n < 1 || k < 1 || k > kLloydK || d < 1 || d > kLloydD || blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = d == kLloydD && ((uintptr_t)x & 15) == 0;
+  lloyd_sums_kernel<<<blocks, kLloydThreads, 0, s>>>(
+      (const float*)x, (const int*)idx, n, k, d, vec, (float*)part);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -547,6 +705,28 @@ int fused_reduce_partials(const void* part, int blocks, int stride, void* out,
                           void* stream) {
   if (blocks < 1 || stride < 1) return (int)cudaErrorInvalidValue;
   return launch_reduce(part, blocks, stride, out, (cudaStream_t)stream);
+}
+
+// The one-job Lloyd step's sums for narrow rows: x (n, d) f32 and idx (n,)
+// i32 labels in [0, k), contiguous on the current device; n >= 1, k <= 8
+// and d <= 4 (lloyd_form).  part: blocks * (k*d + k + 1) f32 scratch.
+// Writes out = [sums (k*d) | counts (k) | 0] f32 on `stream`, pass 2 as in
+// fused_masked_assign_update.  Returns 0 or an error code for
+// kernel_error_string; does not synchronise.
+int lloyd_sums(const void* x, const void* idx, int n, int k, int d,
+               int blocks, void* part, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_lloyd(x, idx, n, k, d, blocks, part, s);
+  if (err) return err;
+  return launch_reduce(part, blocks, k * d + k + 1, out, s);
+}
+
+// The narrow-row sums' form: out = [threads a block, most centroids, most
+// features], for the wrapper to hold its plain model and routing to.
+void lloyd_form(int* out) {
+  out[0] = kLloydThreads;
+  out[1] = kLloydK;
+  out[2] = kLloydD;
 }
 
 }  // extern "C"

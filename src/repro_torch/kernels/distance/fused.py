@@ -26,6 +26,14 @@ whatever the number of shards.  A pass-1 launch adds one to
 ``fused_masked_assign_update.launches`` (it is the fused kernel);
 ``reduce_partials.launches`` counts pass 2 alone.
 
+:func:`lloyd_sums` is the one-job Lloyd step's update for narrow rows
+(``core/kmeans.py``): the per-centroid sums and counts of x's rows by
+labels the search already gave, from one read of x and the labels
+(``lloyd_sums_kernel``), then pass 2 over its partials.  It takes
+``k <= LLOYD_MAX_K``, ``d <= LLOYD_MAX_D`` and up to ``MAX_ROWS`` rows
+(:func:`narrow_rows`); ``lloyd_sums.launches`` counts its launches.  A CPU
+tensor takes its plain twin (:func:`lloyd_sums_ref`).
+
 On the meta device (the dry-run) the two passes take their shape ops
 (:mod:`repro_torch.kernels.shape_ops`): empty outputs, no launch counted,
 and the work counted as FLOPs: 2 n k d for the scores and n d for the
@@ -42,8 +50,12 @@ import torch
 from repro_torch.kernels import _build, shape_ops
 from repro_torch.kernels.distance import ops
 from repro_torch.kernels.distance.ref import (
+    LLOYD_MAX_D,
+    LLOYD_MAX_K,
+    LLOYD_THREADS,
     fused_masked_assign_update_ref,
     fused_masked_partials_ref,
+    lloyd_sums_ref,
     reduce_partials_ref,
 )
 from repro_torch.runtime import spans
@@ -52,10 +64,14 @@ from repro_torch.runtime import spans
 _MAX_PARTIAL_FLOATS = 1 << 24
 # fp32 counts are exact up to 2^24 rows.
 MAX_ROWS = 1 << 24
+# The narrow-row sums' grid: at most this many blocks of LLOYD_THREADS, two an SM of an
+# H100, each thread walking every T-th row (T the grid's threads).
+LLOYD_MAX_BLOCKS = 264
 
 __all__ = ["block_rows", "fused_masked_assign_update",
            "fused_masked_assign_update_ref", "fused_masked_partials",
-           "fused_masked_partials_ref", "reduce_partials",
+           "fused_masked_partials_ref", "lloyd_blocks", "lloyd_sums",
+           "lloyd_sums_ref", "narrow_rows", "reduce_partials",
            "reduce_partials_ref"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,6 +85,8 @@ _SIGNATURES = {
     "fused_reduce_partials": ([_P, _I, _I, _P, _P], ctypes.c_int),
     "fused_smem_bytes": ([_I, _I, _I, _I, _I, _I], ctypes.c_size_t),
     "centroid_pack_floats": ([_I, _I, _I], ctypes.c_size_t),
+    "lloyd_sums": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], ctypes.c_int),
+    "lloyd_form": ([_P], None),
 }
 
 
@@ -316,3 +334,95 @@ def reduce_partials(part: torch.Tensor, k: int, d: int):
 fused_masked_assign_update.launches = 0
 fused_masked_assign_update.recheck_stats = None
 reduce_partials.launches = 0
+
+
+def narrow_rows(n: int, k: int, d: int) -> bool:
+    """Whether :func:`lloyd_sums` takes n rows of d features and k
+    centroids: k <= LLOYD_MAX_K, d <= LLOYD_MAX_D, and n <= MAX_ROWS so
+    that the fp32 counts are exact."""
+    return k <= LLOYD_MAX_K and d <= LLOYD_MAX_D and n <= MAX_ROWS
+
+
+def lloyd_blocks(n: int) -> int:
+    """Blocks of the narrow-row sums over n rows: a function of n alone,
+    so the same inputs always add in the same order."""
+    return max(1, min(LLOYD_MAX_BLOCKS, -(-n // LLOYD_THREADS)))
+
+
+_lloyd_checked = False
+
+
+def _lloyd_lib() -> ctypes.CDLL:
+    """The library, its narrow-row form held once to the plain model's
+    threads and the routing's limits (``ref.LLOYD_*``)."""
+    global _lloyd_checked
+    lib = _lib()
+    if not _lloyd_checked:
+        form = (ctypes.c_int * 3)()
+        lib.lloyd_form(form)
+        want = (LLOYD_THREADS, LLOYD_MAX_K, LLOYD_MAX_D)
+        if tuple(form) != want:
+            raise RuntimeError(f"lloyd_form says (threads, k, d) = "
+                               f"{tuple(form)}, the plain model {want}")
+        _lloyd_checked = True
+    return lib
+
+
+def _lloyd_launch(x: torch.Tensor, idx: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    n, d = x.shape
+    blocks = lloyd_blocks(n)
+    stride = k * d + k + 1
+    part = torch.empty((blocks, stride), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    lib = _lloyd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.lloyd_sums(x.data_ptr(), idx.data_ptr(), n, k, d, blocks,
+                             part.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, err, "lloyd_sums")
+    lloyd_sums.launches += 1
+    return out
+
+
+def lloyd_sums(x: torch.Tensor, idx: torch.Tensor,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-centroid sums and counts of x's rows by their labels.
+
+    Args:
+      x: (n, d) float32 points, contiguous, with :func:`narrow_rows`.
+      idx: (n,) int32 labels in [0, k), contiguous, on x's device.
+      k: the number of centroids.
+    Returns:
+      (sums f32 (k, d), counts f32 (k,)), on a CUDA tensor from one
+      launch of ``lloyd_sums_kernel`` and pass 2, with no host read.
+    """
+    if x.dim() != 2 or idx.shape != (x.shape[0],):
+        raise ValueError(f"need x (n, d) and idx (n,), got {tuple(x.shape)} "
+                         f"and {tuple(idx.shape)}")
+    if x.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"need float32 x and int32 idx, got {x.dtype} and "
+                        f"{idx.dtype}")
+    if idx.device != x.device:
+        raise ValueError(f"x on {x.device} but idx on {idx.device}")
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("x and idx must be contiguous")
+    n, d = x.shape
+    if k < 1 or d < 1 or not narrow_rows(n, k, d):
+        raise ValueError(f"n={n}, k={k}, d={d}: the narrow-row sums take "
+                         f"1 <= k <= {LLOYD_MAX_K}, 1 <= d <= {LLOYD_MAX_D}"
+                         f" and at most {MAX_ROWS} rows")
+    if x.device.type == "cpu":
+        return lloyd_sums_ref(x, idx, k, lloyd_blocks(n))
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    if n == 0:
+        return (torch.zeros((k, d), dtype=torch.float32, device=x.device),
+                torch.zeros(k, dtype=torch.float32, device=x.device))
+    with spans.span("repro_torch.kernels.lloyd_sums"):
+        out = _lloyd_launch(x, idx, k)
+    return out[:k * d].view(k, d), out[k * d:k * d + k]
+
+
+lloyd_sums.launches = 0

@@ -14,6 +14,11 @@ oracle for small inputs.
 masked Lloyd step (``csrc/fused.cu``): the same assignment, then the masked
 per-centroid sums and counts as a one-hot matrix product, chunked by rows.
 
+:func:`lloyd_sums_ref` is the plain twin of the one-job step's narrow-row
+sums (``csrc/fused.cu``, ``lloyd_sums_kernel`` and pass 2): each thread's
+rows in order, a warp's xor tree, a block's warps in order, the blocks'
+partials as the fused step reduces them.
+
 :func:`tf32_round`, :func:`tf32x3_scores`, :func:`score_window` and
 :func:`recheck_argmin` are a plain model of how the kernels find the argmin:
 candidate scores from three TF32 products on the tensor cores, a window
@@ -162,6 +167,61 @@ def reduce_partials_ref(part: torch.Tensor, k: int, d: int):
             run = run + part[b]
         out = run if out is None else out + run
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
+
+
+# The narrow-row sums' form (csrc/fused.cu, read back by its lloyd_form
+# entry before the first launch): threads a block, and the most centroids
+# and features a thread keeps in registers.
+LLOYD_THREADS = 256
+LLOYD_MAX_K = 8
+LLOYD_MAX_D = 4
+_LANES = 32
+
+
+def lloyd_partials_ref(x: torch.Tensor, idx: torch.Tensor, k: int,
+                       blocks: int) -> torch.Tensor:
+    """The narrow-row sums' pass 1 (``lloyd_sums_kernel``): partials f32
+    (blocks, k*d + k + 1), each [sums | counts | 0] of a block, added in
+    the kernel's order.
+
+    Thread t of the T = blocks x LLOYD_THREADS takes rows t, t + T, ... in
+    order, adding a row to its label's sums; a warp's 32 threads then add
+    by an xor tree (lane l takes l + (l ^ o) for o = 16, 8, 4, 2, 1), and
+    the block adds its warps in order.  Counts are integers to the end.
+    Every addition is rounded to fp32.
+    """
+    x = x.float()
+    n, d = x.shape
+    threads = blocks * LLOYD_THREADS
+    acc = torch.zeros((threads, k, d), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((threads, k), dtype=torch.int64, device=x.device)
+    cols = torch.arange(k, device=x.device)
+    for r0 in range(0, n, threads):
+        m = min(threads, n - r0)
+        hit = idx[r0:r0 + m, None].long() == cols[None, :]
+        a = acc[:m]
+        acc[:m] = torch.where(hit[:, :, None], a + x[r0:r0 + m, None, :], a)
+        cnt[:m] += hit
+    acc = acc.view(blocks, LLOYD_THREADS // _LANES, _LANES, k, d)
+    lanes = torch.arange(_LANES, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lanes ^ o]
+    sums = acc[:, 0, 0]
+    for w in range(1, LLOYD_THREADS // _LANES):
+        sums = sums + acc[:, w, 0]
+    counts = cnt.view(blocks, LLOYD_THREADS, k).sum(1).float()
+    return torch.cat([sums.reshape(blocks, k * d), counts,
+                      counts.new_zeros((blocks, 1))], dim=1)
+
+
+def lloyd_sums_ref(x: torch.Tensor, idx: torch.Tensor, k: int, blocks: int):
+    """(sums f32 (k, d), counts f32 (k,)) of x's rows by their labels
+    ``idx`` in [0, k), bit for bit what ``csrc/fused.cu``'s narrow-row sums
+    give on ``blocks`` blocks: :func:`lloyd_partials_ref`, then pass 2
+    (:func:`reduce_partials_ref`)."""
+    sums, counts, _ = reduce_partials_ref(
+        lloyd_partials_ref(x, idx, k, blocks), k, x.shape[1])
+    return sums, counts
 
 
 # --- a plain model of the kernels' search (tests only) ---------------------

@@ -9,7 +9,8 @@ no CUDA device is present.  On a machine with an H100 and nvcc:
 DBSCAN ones, ``-k "moe or mamba or families"`` for the MoE FFN, the Mamba
 mixer and the six archs that use them, card against host.)
 
-(``-k wide`` for the K-Means kernels' wide search, d > 96.)
+(``-k wide`` for the K-Means kernels' wide search, d > 96; ``-k lloyd``
+for the one-job step's narrow-row sums.)
 
 (``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
 """
@@ -633,6 +634,140 @@ def test_recheck_counts(gen):
     fops.fused_masked_assign_update(
         x, c, torch.ones(4096, dtype=torch.bool, device="cuda"))
     assert dops.rechecks(fops.fused_masked_assign_update) == (total, most)
+
+
+# The one-job step's narrow-row sums (lloyd_sums_kernel): n not a multiple
+# of a block, n below a warp, k = 1, d = 1, an empty cluster (centroid k - 1),
+# k and d at their limits (8 and 4), the examples' shapes (quickstart's
+# 6,144 points of 2 features in 6 clusters; mine_cluster's grid), and the
+# benchmark's 2^24 rows of 4 features at k = 8.
+LLOYD_CASES = [(1000, 8, 4), (300, 5, 3), (17, 3, 2), (5, 1, 1), (3, 4, 4),
+               (4097, 1, 1), (70001, 8, 1), (70001, 8, 3), (70001, 1, 4),
+               (6144, 6, 2), (2048, 4, 2), (70001, 7, 4), (1 << 24, 8, 4)]
+
+
+def _lloyd_inputs(gen, n, k, d):
+    x = (torch.randn(n, d, generator=gen) * 4).cuda()
+    idx = torch.randint(0, k, (n,), generator=gen, dtype=torch.int32)
+    if k > 1:
+        idx[idx == k - 1] = 0
+    return x, idx.cuda()
+
+
+@pytest.mark.parametrize("n,k,d", LLOYD_CASES)
+def test_lloyd_sums_kernel_is_bit_exact(gen, n, k, d):
+    x, idx = _lloyd_inputs(gen, n, k, d)
+    before = fops.lloyd_sums.launches
+    sums, counts = fops.lloyd_sums(x, idx, k)
+    blocks = fops.lloyd_blocks(n)
+    rsums, rcounts = dref.lloyd_sums_ref(x, idx, k, blocks)
+    torch.cuda.synchronize()
+    assert fops.lloyd_sums.launches == before + 1
+    assert torch.equal(sums, rsums) and torch.equal(counts, rcounts)
+    # no float atomics: a second launch gives the same bits
+    again = fops.lloyd_sums(x, idx, k)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+    # within fp32 rounding of the float64 sums: m additions on the longest
+    # path (a thread's rows, the xor tree, the warps, pass 2) give at most
+    # m u sum |x|
+    onehot = (idx[:, None].long()
+              == torch.arange(k, device="cuda")).double()
+    exact, scale = onehot.T @ x.double(), onehot.T @ x.double().abs()
+    m = (-(-n // (blocks * dref.LLOYD_THREADS)) + 5 + 7
+         + -(-blocks // dref.REDUCE_RUNS) + dref.REDUCE_RUNS - 1)
+    assert torch.equal(counts.double(), onehot.sum(0))
+    assert bool(((sums.double() - exact).abs()
+                 <= 1.01 * m * 2.0 ** -24 * scale).all())
+
+
+def test_lloyd_sums_kernel_unaligned_rows_take_scalar_loads(gen):
+    # rows of 4 features 4 bytes past a 16-byte boundary: no float4 loads,
+    # the same sums
+    n, k, d = 5000, 8, 4
+    buf = (torch.randn(n * d + 1, generator=gen) * 4).cuda()
+    x = buf[1:].view(n, d)
+    assert x.data_ptr() % 16 != 0
+    idx = torch.randint(0, k, (n,), generator=gen, dtype=torch.int32).cuda()
+    sums, counts = fops.lloyd_sums(x, idx, k)
+    asums, acounts = fops.lloyd_sums(x.clone(), idx, k)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, asums) and torch.equal(counts, acounts)
+
+
+def test_lloyd_sums_kernel_keeps_a_nan_row_in_its_own_centroid(gen):
+    """NaN input splits the lanes on purpose, as the fused kernel does:
+    the narrow-row sums add a NaN row to its own centroid only, the plain
+    version's one-hot product to every centroid.  The one-job fit of
+    tests/test_torch_nan_input.py's case (the reference's labels on the
+    host) ends on the same labels and iterations on both lanes, and only
+    the kernel lane keeps the other centroid finite."""
+    import numpy as np
+    from dataclasses import replace
+
+    from repro_torch.core import kmeans
+
+    rng = np.random.default_rng(1)
+    xn = rng.normal(size=(128, 2)).astype(np.float32)
+    xn[:64] += 6.0
+    xn[7, 0] = np.nan
+    x = torch.from_numpy(xn).cuda()
+    idx = torch.zeros(128, dtype=torch.int32, device="cuda")
+    idx[64:] = 1
+    sums, counts = fops.lloyd_sums(x, idx, 2)
+    rsums, rcounts = dref.lloyd_sums_ref(x, idx, 2, fops.lloyd_blocks(128))
+    psums, pcounts = kmeans._weighted_sums(x, idx, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, rcounts) and torch.equal(counts, pcounts)
+    assert torch.isnan(sums[0, 0]) and torch.isnan(rsums[0, 0])
+    assert torch.equal(sums[0, 1:], rsums[0, 1:])
+    assert torch.equal(sums[1], rsums[1]) and torch.isfinite(sums[1]).all()
+    assert torch.isnan(psums[:, 0]).all()
+
+    cfg = kmeans.KMeansConfig(k=2, max_iters=20)
+    c0 = x[[0, 100]].clone()
+    before = fops.lloyd_sums.launches
+    res = kmeans.fit_cancellable(None, x, cfg, centroids=c0)
+    plain = kmeans.fit_cancellable(None, x, replace(cfg, use_kernel=False),
+                                   centroids=c0)
+    assert fops.lloyd_sums.launches - before == int(res.iterations) == 20
+    assert torch.equal(res.labels, plain.labels)
+    assert int(res.iterations) == int(plain.iterations)
+    assert (res.labels == 0).all() and not bool(res.converged)
+    assert torch.isnan(res.centroids[0, 0])
+    assert torch.isfinite(res.centroids[1]).all()
+    assert torch.isnan(plain.centroids[:, 0]).all()
+
+
+def test_lloyd_sums_kernel_takes_the_narrow_fit(gen):
+    # fit_cancellable at a narrow shape launches the sums once a step and
+    # the search as before; the plain config launches neither, and keeps
+    # the product
+    from dataclasses import replace
+
+    from repro_torch.core import kmeans
+    from repro_torch.data import synthetic as synth
+
+    x, _, _ = synth.make_blobs(5, synth.ClusterSpec(4, 8, 4096),
+                               device="cuda")
+    cfg = kmeans.KMeansConfig(k=8, max_iters=50)
+    c0 = kmeans.init_centroids(5, x, cfg)
+    sums0, assign0 = fops.lloyd_sums.launches, dops.assign_clusters.launches
+    res = kmeans.fit_cancellable(5, x, cfg, centroids=c0)
+    iters = int(res.iterations)
+    assert iters >= 2
+    assert fops.lloyd_sums.launches - sums0 == iters
+    assert dops.assign_clusters.launches - assign0 == iters
+    sums1, assign1 = fops.lloyd_sums.launches, dops.assign_clusters.launches
+    plain = kmeans.fit_cancellable(5, x, replace(cfg, use_kernel=False),
+                                   centroids=c0)
+    assert fops.lloyd_sums.launches == sums1
+    assert dops.assign_clusters.launches == assign1
+    assert torch.equal(res.labels, plain.labels)
+    assert int(res.iterations) == int(plain.iterations)
+    # the mini-batch step takes the same rule
+    state = kmeans.minibatch_init(5, x[:1024], cfg)
+    kmeans.minibatch_step(state, x[:1024], cfg)
+    assert fops.lloyd_sums.launches == sums1 + 1
 
 
 # flash attention: the reference's tolerances (tests/test_parallel.py)

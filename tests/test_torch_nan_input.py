@@ -13,10 +13,16 @@ and the port keeps it so.  What the port promises instead:
 - ``fit`` stops at the NaN shift after one step, as the reference's
   ``while shift >= tol`` loop does.
 
-The lanes split on the centroids, by design: the fused kernel adds a NaN
-row only to its own centroid's sums, where the plain version's one-hot
-product spreads it to every centroid.  That split is pinned on the card
-(``tests/test_torch_cuda.py::test_fused_kernel_keeps_a_nan_row_in_its_own_centroid``).
+The lanes split on the centroids, by design: the fused kernel (the
+service's masked step) and the narrow-row sums (``fused.lloyd_sums``: the
+one-job step and the mini-batch step on the card, for k <= 8 and d <= 4)
+add a NaN row only to its own centroid's sums, where the plain version's
+one-hot product spreads it to every centroid.  The one-job fit below
+still ends on the reference's labels with the narrow-row sums' plain twin
+routed in (the NaN centroid takes every row either way); its centroids
+differ.  The split is pinned on the card
+(``tests/test_torch_cuda.py::test_fused_kernel_keeps_a_nan_row_in_its_own_centroid``,
+``::test_lloyd_sums_kernel_keeps_a_nan_row_in_its_own_centroid``).
 """
 
 import jax.numpy as jnp
@@ -108,3 +114,43 @@ def test_fit_stops_at_a_nan_shift_like_the_reference():
     assert not bool(jr.converged) and not bool(tr.converged)
     np.testing.assert_array_equal(np.asarray(jr.labels), np.asarray(jstep))
     np.testing.assert_array_equal(tr.labels.numpy(), tstep.numpy())
+
+
+def test_narrow_row_sums_keep_a_nan_row_in_its_own_centroid(monkeypatch):
+    """The card's narrow-row route, by its plain twin on the host: the
+    one-job fit of the case above gives the reference's labels and
+    iterations, but only the NaN row's own centroid turns NaN."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(128, 2)).astype(np.float32)
+    x[:64] += 6.0
+    x[7, 0] = np.nan
+    c0 = x[[0, 100]].copy()
+    kw = dict(k=2, max_iters=20)
+    jr = jkm.fit_cancellable(None, jnp.asarray(x), jkm.KMeansConfig(**kw),
+                             centroids=jnp.asarray(c0))
+    calls = []
+    real = tkm.lloyd_sums
+
+    def routed(xs, assign, k):
+        calls.append(k)
+        return real(xs, assign, k)
+
+    monkeypatch.setattr(tkm, "lloyd_sums", routed)
+    monkeypatch.setattr(tkm, "_takes_lloyd_kernel", lambda xs, cfg: True)
+    tr = tkm.fit_cancellable(None, torch.from_numpy(x),
+                             tkm.KMeansConfig(**kw),
+                             centroids=torch.from_numpy(c0))
+    assert len(calls) == int(tr.iterations) == int(jr.iterations)
+    np.testing.assert_array_equal(tr.labels.numpy(), np.asarray(jr.labels))
+    assert (tr.labels == 0).all() and not bool(tr.converged)
+    assert torch.isnan(tr.centroids[0, 0])
+    assert torch.isfinite(tr.centroids[1]).all()
+    # the step's sums themselves: NaN in the row's own centroid only
+    xt = torch.from_numpy(x)
+    idx = torch.zeros(128, dtype=torch.int32)
+    idx[64:] = 1
+    sums, counts = fops.lloyd_sums(xt, idx, 2)
+    psums, pcounts = tkm._weighted_sums(xt, idx, 2)
+    assert torch.equal(counts, pcounts)
+    assert torch.isnan(sums[0, 0]) and torch.isfinite(sums[1]).all()
+    assert torch.isnan(psums[:, 0]).all()

@@ -217,7 +217,8 @@ def test_kernel_wrapper_spans_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     x = _points("cuda")
-    for fn, wrappers in ((_kmeans, {"repro_torch.kernels.assign_clusters"}),
+    for fn, wrappers in ((_kmeans, {"repro_torch.kernels.assign_clusters",
+                                    "repro_torch.kernels.lloyd_sums"}),
                          (_dbscan, {"repro_torch.kernels.epsilon_degree",
                                     "repro_torch.kernels.expand_frontier"})):
         plain = fn(x)
