@@ -6,16 +6,19 @@ Everything a cell is made of is found by name:
 
 - the cell (configuration, traffic, chips) in ``BENCHMARK.json`` at the
   root of the checkout;
-- the configuration in ``portbench/configs/<config>.json``;
+- the configuration in ``portbench/configs/<config>.json``, and the
+  generator of its inputs (its ``data.generator``) in
+  ``portbench/generators/<generator>.py``;
 - the traffic mix in ``portbench/traffic/<traffic>.json``, which names
   the entry its jobs go through, driven by ``portbench/entries/<entry>.py``
   (:mod:`portbench.drive`);
 - the sample and limits of its correctness check in
-  ``portbench/cells/<cell>.json``, and the comparison of the
-  configuration's algorithm in ``portbench/checks/<algorithm>.py``;
+  ``portbench/cells/<cell>.json``, and the configuration's algorithm's
+  comparison, control and host-sized copy in
+  ``portbench/checks/<algorithm>.py``;
 - each per-layer metric's reader in ``portbench/metrics/<metric>.py``.
 
-The yardstick stays here: the generator (:mod:`portbench.inputs`), the
+The yardstick stays here: the generators (:mod:`portbench.inputs`), the
 work counts and peaks (:mod:`portbench.work`), the trace reduction
 (:mod:`portbench.tracing`), the plain reference
 (:mod:`portbench.reference`) and the comparisons (:mod:`portbench.checks`).

@@ -14,6 +14,9 @@ run's one by one.  Three numbers are compared for each sampled job:
 - ``update_gap``: the program's final centroids against the exact means
   of the points its own final labels give each, over the largest |x|:
   the update.
+
+The control is the reference's Lloyd with TF32 products in the
+program's place.
 """
 
 from __future__ import annotations
@@ -39,6 +42,25 @@ def numbers(x: torch.Tensor, ref: dict, labels: torch.Tensor,
         "inertia_gap": abs(float(inertia) - ref["inertia"]) / ref["inertia"],
         "update_gap": ref_kmeans.update_gap(x, labels, centroids),
     }
+
+
+def small(config: dict) -> dict:
+    """The configuration at 8 x 512 blob points and 10 steps."""
+    return dict(config, points=8 * 512, iterations=10,
+                data=dict(config["data"], points_per_cluster=512))
+
+
+def control(config: dict, data: List[torch.Tensor], seed: int,
+            shared=None) -> Dict[str, float]:
+    """The numbers of the TF32 reference put in the program's place, on
+    dataset 0 from job 0's initial centroids."""
+    x = data[0]
+    c0 = inputs.initial_centroids(x, config["k"], seed, 0)
+    ref = ref_kmeans.lloyd(x, c0, config["iterations"])
+    low = ref_kmeans.lloyd(x, c0, config["iterations"], "tf32")
+    step = ref_kmeans.nearest(x, ref["last"], "tf32")[0]
+    return numbers(x, ref, low["labels"], low["centroids"], low["inertia"],
+                   step)
 
 
 def check(entry, config: dict, data: List[torch.Tensor], seed: int,

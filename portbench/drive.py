@@ -69,11 +69,14 @@ class Entry:
     """One entry point of the port, driven a job at a time."""
 
     def __init__(self, config: dict, traffic: dict, data: List[torch.Tensor],
-                 seed: int) -> None:
+                 seed: int, shared=None) -> None:
         self.config = config
         self.traffic = traffic
         self.data = data
         self.seed = seed
+        # what every job shares (:func:`portbench.inputs.shared`), such as
+        # a model's weights: part of each job's footprint
+        self.shared = shared
         self._scratch: Dict[str, torch.Tensor] = {}
 
     def dataset(self, j: int) -> int:
@@ -111,9 +114,10 @@ class Entry:
 
 
 def entry(config: dict, traffic: dict, data: List[torch.Tensor],
-          seed: int) -> Entry:
+          seed: int, shared=None) -> Entry:
     """The entry the traffic names, driven over ``data``."""
-    return spec.driver(traffic["entry"]).Entry(config, traffic, data, seed)
+    return spec.driver(traffic["entry"]).Entry(config, traffic, data, seed,
+                                               shared)
 
 
 def loop(e: Entry) -> Callable:

@@ -1,20 +1,24 @@
-"""The benchmark's inputs, drawn from ``--seed`` on the device.
+"""The benchmark's inputs, drawn from ``--seed``.
 
-A copy of the paper's generator (§II.C: normally distributed points around
-randomly placed centres, a random variance for each feature of each
-cluster, shuffled), as ``repro_torch/data/synthetic.py:make_blobs`` draws
-it.  Everything is drawn by a ``torch.Generator`` on
-the device in a few large calls, so set-up stays short and the same seed
-gives the same points.  Each stream of numbers (a dataset, a job's initial
-centroids) has its own generator, seeded from (seed, stream, index).
+A configuration names the generator of its inputs (``data.generator``),
+``portbench/generators/<name>.py`` (:func:`portbench.spec.generator`).
+Datasets and the inputs a run shares are drawn by a ``torch.Generator``
+on the device in a few large calls, so set-up stays short and the same
+seed gives the same inputs; a job's initial rows are drawn on the host.
+Each stream of numbers (a dataset, the inputs a run shares, a job's
+initial rows) has its own generator, seeded from (seed, stream, index).
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
-DATA, INIT, SAMPLE = 1, 2, 3
+from portbench import spec
+
+DATA, INIT, SAMPLE, SHARED = 1, 2, 3, 4
 
 
 def stream_seed(seed: int, stream: int, index: int) -> int:
@@ -30,39 +34,43 @@ def generator(seed: int, stream: int, index: int,
         stream_seed(seed, stream, index))
 
 
-def make_points(gen: torch.Generator, data: dict,
-                features: int) -> torch.Tensor:
-    """(n, features) float32 points on the generator's device.
-
-    ``data``: ``clusters`` x ``points_per_cluster`` gaussian points, centres
-    uniform in [-center_range, center_range], per-feature sigmas uniform in
-    [min_sigma, max_sigma], shuffled.
-    """
-    dev = gen.device
-    c, m, f = data["clusters"], data["points_per_cluster"], features
-    r = float(data["center_range"])
-    lo, hi = float(data["min_sigma"]), float(data["max_sigma"])
-    centers = torch.rand((c, f), generator=gen, device=dev) * (2 * r) - r
-    sigmas = torch.rand((c, f), generator=gen, device=dev) * (hi - lo) + lo
-    labels = torch.arange(c, device=dev).repeat_interleave(m)
-    points = torch.randn((c * m, f), generator=gen, device=dev)
-    points = points.mul_(sigmas[labels]).add_(centers[labels])
-    del labels
-    perm = torch.randperm(points.shape[0], generator=gen, device=dev)
-    return points[perm].contiguous()
-
-
 def datasets(config: dict, seed: int, count: int,
              device: torch.device) -> list:
     """The ``count`` datasets of a run, dataset i from (seed, i)."""
-    return [make_points(generator(seed, DATA, i, device), config["data"],
-                        config["features"]) for i in range(count)]
+    gen = spec.generator(config["data"]["generator"])
+    return [gen.dataset(config, generator(seed, DATA, i, device))
+            for i in range(count)]
+
+
+def shared(config: dict, seed: int, device: torch.device):
+    """The inputs every job of a run shares, such as a model's weights,
+    from (seed); None where the configuration's generator draws none."""
+    gen = spec.generator(config["data"]["generator"])
+    if not hasattr(gen, "shared"):
+        return None
+    return gen.shared(config, generator(seed, SHARED, 0, device))
+
+
+def initial_indices(n: int, k: int, seed: int, job: int) -> List[int]:
+    """k distinct row indices below n, drawn from (seed, job) on the host
+    in O(k) memory (Floyd's algorithm), the same on every device."""
+    if not 0 <= k <= n:
+        raise ValueError(f"cannot draw {k} distinct rows of {n}")
+    rng = np.random.default_rng(stream_seed(seed, INIT, job))
+    picked: List[int] = []
+    seen = set()
+    for top in range(n - k, n):
+        t = int(rng.integers(0, top + 1))
+        pick = top if t in seen else t
+        seen.add(pick)
+        picked.append(pick)
+    return picked
 
 
 def initial_centroids(x: torch.Tensor, k: int, seed: int,
                       job: int) -> torch.Tensor:
     """Job ``job``'s initial centroids: k distinct points of its dataset,
     drawn from (seed, job)."""
-    gen = generator(seed, INIT, job, x.device)
-    idx = torch.randperm(x.shape[0], generator=gen, device=x.device)[:k]
-    return x[idx].contiguous()
+    idx = torch.tensor(initial_indices(x.shape[0], k, seed, job),
+                       dtype=torch.long).to(x.device)
+    return x.index_select(0, idx)

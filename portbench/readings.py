@@ -5,11 +5,12 @@
         [--control-seeds 1 2 3] [--out FILE]
 
 For each seed of ``--seeds``: the cell's first job of that seed (its
-dataset 0 and initial centroids), run through the cell's entry on the
-card at the cell's size, and the numbers the check compares.  For each
-seed of ``--control-seeds``: the control, the plain reference computed
-with TF32 products put in the program's place, and the same numbers.
-One JSON line each, to standard output and to ``--out``.  The
+dataset 0, job 0), run through the cell's entry on the card at the
+cell's size, and the numbers the check compares.  For each seed of
+``--control-seeds``: the control, the plain reference computed in the
+precision below the configuration's and put in the program's place
+(``control`` in ``portbench/checks/<algorithm>.py``), and the same
+numbers.  One JSON line each, to standard output and to ``--out``.  The
 benchmark's own runs never run this.
 """
 
@@ -28,8 +29,6 @@ def readings(cell_name: str, seeds, control_seeds, device: str = "cuda",
              config: dict = None):
     """Yields one dict a reading."""
     from portbench import drive, inputs, spec
-    from portbench.reference import dbscan as ref_dbscan
-    from portbench.reference import kmeans as ref_kmeans
     from repro_torch.runtime import backend
 
     bench = spec.benchmark()
@@ -41,22 +40,14 @@ def readings(cell_name: str, seeds, control_seeds, device: str = "cuda",
 
     def program(seed) -> dict:
         data = inputs.datasets(config, seed, 1, dev)
-        e = drive.entry(config, traffic, data, seed)
+        e = drive.entry(config, traffic, data, seed,
+                        inputs.shared(config, seed, dev))
         job = drive.Job(0, 0, e.fetch(e.run(0), True), {})
         return compare.check(e, config, data, seed, [job])[0]
 
     def control(seed) -> dict:
-        x = inputs.datasets(config, seed, 1, dev)[0]
-        if config["algorithm"] == "kmeans":
-            c0 = inputs.initial_centroids(x, config["k"], seed, 0)
-            ref = ref_kmeans.lloyd(x, c0, config["iterations"])
-            low = ref_kmeans.lloyd(x, c0, config["iterations"], "tf32")
-            step = ref_kmeans.nearest(x, ref["last"], "tf32")[0]
-            return compare.numbers(x, ref, low["labels"], low["centroids"],
-                                   low["inertia"], step)
-        eps, mp = float(config["eps"]), int(config["min_pts"])
-        ref = ref_dbscan.fit(x, eps, mp)
-        return compare.numbers(*ref_dbscan.fit(x, eps, mp, "tf32"), ref)
+        return compare.control(config, inputs.datasets(config, seed, 1, dev),
+                               seed, inputs.shared(config, seed, dev))
 
     for side, fn, group in (("program", program, seeds),
                             ("control", control, control_seeds)):

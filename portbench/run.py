@@ -110,7 +110,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     data = inputs.datasets(config, seed, int(traffic["datasets"]), dev)
-    entry = drive.entry(config, traffic, data, seed)
+    entry = drive.entry(config, traffic, data, seed,
+                        inputs.shared(config, seed, dev))
     sample = drive.Reservoir(seed, int(limits["sample"]))
     marks.append(("data", time.time()))
     entry.run(WARMUP)

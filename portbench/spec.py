@@ -1,10 +1,10 @@
 """Finds a cell's pieces by name.
 
 ``BENCHMARK.json`` names the cells, configurations and metrics; each
-configuration, traffic mix, cell's check, entry driver, algorithm's
-comparison and per-layer reader is a file of its own under
-``portbench/``.  A later cell adds files and entries and edits none of
-these.
+configuration, traffic mix, cell's check, input generator, entry driver,
+algorithm's comparison and per-layer reader is a file of its own under
+``portbench/``.  A later cell, of a kind the benchmark has not seen
+before too, adds files and entries and edits none of these.
 """
 
 from __future__ import annotations
@@ -96,5 +96,18 @@ def driver(entry_name: str) -> ModuleType:
 
 def comparison(algorithm: str) -> ModuleType:
     """How an algorithm's answers are held to the reference
-    (``portbench/checks/<algorithm>.py``): a module with ``check``."""
+    (``portbench/checks/<algorithm>.py``): a module with ``check`` (the
+    numbers of each sampled job), ``control`` (the same numbers of the
+    reference computed in the precision below the configuration's) and
+    ``small`` (the configuration cut to a size the host tests run)."""
     return module("checks", algorithm)
+
+
+def generator(name: str) -> ModuleType:
+    """The inputs of a configuration (``portbench/generators/<name>.py``,
+    named by its ``data.generator``): a module with ``dataset(config,
+    gen)``, one dataset from a ``torch.Generator``, ``check(config)``,
+    which raises where the configuration's sizes disagree, and optionally
+    ``shared(config, gen)``, the inputs every job of a run shares (a
+    model's weights), drawn once in set-up."""
+    return module("generators", name)

@@ -34,7 +34,11 @@ def test_cell_finds_its_pieces(cell):
     cfg = spec.config(BENCH, w["config"])
     traffic = spec.traffic(w["traffic"])
     assert issubclass(spec.driver(traffic["entry"]).Entry, drive.Entry)
-    assert callable(spec.comparison(cfg["algorithm"]).check)
+    compare = spec.comparison(cfg["algorithm"])
+    assert all(callable(getattr(compare, f))
+               for f in ("check", "control", "small"))
+    gen = spec.generator(cfg["data"]["generator"])
+    assert callable(gen.dataset) and callable(gen.check)
     lim = spec.limits(cell)
     assert lim["numbers"] and int(lim["sample"]) >= 1
     assert w["chips"] == 1
@@ -54,10 +58,10 @@ def test_every_config_is_used_and_its_file_lies_under_paths():
         assert c["file"].startswith(BENCH["paths"][0] + "/")
         cfg = spec.config(BENCH, c["name"])
         assert cfg["name"] == c["name"]
-        # the sizes the work counts use are the points the data draws
-        data = cfg["data"]
-        assert cfg["points"] == data["clusters"] * data["points_per_cluster"]
-        assert all(key in data or key in cfg for key in c["reduced"])
+        # held to its own generator's schema (the blobs: the points the
+        # work counts use are the points the data draws)
+        spec.generator(cfg["data"]["generator"]).check(cfg)
+        assert all(key in cfg["data"] or key in cfg for key in c["reduced"])
 
 
 def test_per_layer_metrics_name_real_cells_and_one_layer_name_each():
@@ -74,6 +78,6 @@ def test_unknown_names_are_refused():
         spec.config(BENCH, "no-such-config")
     with pytest.raises(FileNotFoundError):
         spec.traffic("no-such-mix")
-    for find in (spec.driver, spec.comparison, spec.reader):
+    for find in (spec.driver, spec.comparison, spec.reader, spec.generator):
         with pytest.raises(KeyError):
             find("no-such-piece")
