@@ -3,7 +3,8 @@
 The modules are copies of the reference's (``repro/configs``), each with
 the published config and a ``smoke()`` reduced config of the same family,
 for all ten archs: dense, MoE, Mamba, the hybrid and the two stub-frontend
-backbones.
+backbones (``ARCH_NAMES``).  ``PORT_ARCH_NAMES`` are the port's own, which
+the reference does not have: ``jamba2-mini``.
 """
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, SHAPES
@@ -23,13 +24,21 @@ _ARCH_MODULES = {
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
 
+_PORT_MODULES = {
+    "jamba2-mini": "repro_torch.configs.jamba2_mini",
+}
+
+PORT_ARCH_NAMES = tuple(_PORT_MODULES)
+
 
 def _module(name: str):
     import importlib
 
-    if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    return importlib.import_module(_ARCH_MODULES[name])
+    modules = {**_ARCH_MODULES, **_PORT_MODULES}
+    if name not in modules:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{ARCH_NAMES + PORT_ARCH_NAMES}")
+    return importlib.import_module(modules[name])
 
 
 def get_config(name: str) -> ModelConfig:
@@ -45,6 +54,7 @@ __all__ = [
     "ShapeSpec",
     "SHAPES",
     "ARCH_NAMES",
+    "PORT_ARCH_NAMES",
     "get_config",
     "get_smoke_config",
 ]

@@ -161,6 +161,8 @@ class ModelConfig:
                 total += self.dt_rank * di + di        # dt_proj (+bias)
                 total += di * st + di                  # A_log, D
                 total += di * d              # out_proj
+                if switch(self, "ssm_norms"):
+                    total += self.dt_rank + 2 * st     # dt, B, C norms
             if ff == "dense":
                 total += 3 * d * self.d_ff if self.act == "swiglu" \
                     else 2 * d * self.d_ff
@@ -184,6 +186,34 @@ class ModelConfig:
             if ff == "moe":
                 inactive += (self.n_experts - self.top_k) * per_expert
         return self.n_params() - inactive
+
+
+def switch(cfg, name: str) -> bool:
+    """``cfg``'s published-form switch ``name``: its field on a
+    :class:`PortConfig`, else that field's default, the reference's form
+    (the ten archs' configs, and the reference's own, which the parity
+    tests hand the port, have no such field)."""
+    return getattr(cfg, name, getattr(PortConfig, name))
+
+
+@dataclasses.dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A config of an arch the port serves beyond the reference's ten,
+    with the published forms as fields:
+
+    - ``rope``: False for attention with no position embedding (Jamba);
+    - ``ssm_norms``: RMSNorms with weights on the Mamba mixer's dt (width
+      dt_rank), B and C (d_state each), after ``x_proj`` (Jamba);
+    - ``router_renorm``: False keeps the softmax's top-k weights as they
+      are (Jamba, Mixtral's softmax over all experts);
+    - ``moe_dropless``: every routed (token, choice) pair computed, with
+      no capacity, in prefill and decode (:func:`models.moe.moe_ffn`).
+    """
+
+    rope: bool = True
+    ssm_norms: bool = False
+    router_renorm: bool = True
+    moe_dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

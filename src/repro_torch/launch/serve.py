@@ -31,6 +31,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cancellation import CancellationToken
 from repro_torch.models import lm
 from repro_torch.runtime import backend as backend_mod
+from repro_torch.runtime import spans
+
+PREFILL, DECODE = "repro_torch.lm.prefill", "repro_torch.lm.decode"
 
 
 def _sync(device: torch.device) -> None:
@@ -51,37 +54,49 @@ def _next_token(logits: torch.Tensor, cfg: ModelConfig, temperature: float,
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig, *, gen: int,
              temperature: float = 0.0,
              token: Optional[CancellationToken] = None,
-             generator: Optional[torch.Generator] = None) -> dict:
+             generator: Optional[torch.Generator] = None,
+             keep_logits: bool = False) -> dict:
     """Prefill ``prompts`` (B, P), then decode up to ``gen`` tokens.
 
     Returns the generated tokens (B, n) int32 (None if none), the prefill's
     last-position logits, whether every logit of the run was finite, and the
     prefill and decode wall times (host clock up to a device synchronise).
+    ``keep_logits=True`` also returns ``logits`` (B, 1 + n, vocab) float32
+    on the prompts' device: the prompt's last position's and each decode
+    step's, those of positions P - 1 .. P + n - 1.  The prefill and the
+    decode loop are the spans ``repro_torch.lm.prefill`` and
+    ``repro_torch.lm.decode``, each closed after its synchronise.
     """
     device = prompts.device
     batch, prompt_len = prompts.shape
     _sync(device)
     t0 = time.time()
-    logits, cache = lm.prefill_step(params, prompts, cfg,
-                                    max_seq=prompt_len + gen)
-    prefill_logits = logits
-    finite = torch.isfinite(logits).all()
-    _sync(device)
+    with spans.span(PREFILL):
+        logits, cache = lm.prefill_step(params, prompts, cfg,
+                                        max_seq=prompt_len + gen)
+        prefill_logits = logits
+        kept = [logits[:, -1, :cfg.vocab]] if keep_logits else None
+        finite = torch.isfinite(logits).all()
+        _sync(device)
     t_prefill = time.time() - t0
 
     out: List[torch.Tensor] = []
     tok = _next_token(logits, cfg, temperature, generator)
     t0 = time.time()
-    for i in range(gen):
-        if token is not None and token.cancelled():
-            break
-        out.append(tok)
-        logits, cache = lm.decode_step(params, cache, tok, prompt_len + i, cfg)
-        finite &= torch.isfinite(logits).all()
-        tok = _next_token(logits, cfg, temperature, generator)
-    _sync(device)
+    with spans.span(DECODE):
+        for i in range(gen):
+            if token is not None and token.cancelled():
+                break
+            out.append(tok)
+            logits, cache = lm.decode_step(params, cache, tok,
+                                           prompt_len + i, cfg)
+            if keep_logits:
+                kept.append(logits[:, -1, :cfg.vocab])
+            finite &= torch.isfinite(logits).all()
+            tok = _next_token(logits, cfg, temperature, generator)
+        _sync(device)
     t_decode = time.time() - t0
-    return {
+    result = {
         "generated": (torch.cat(out, dim=1).to(torch.int32) if out else None),
         "prefill_logits": prefill_logits,
         "logits_finite": bool(finite),
@@ -89,6 +104,9 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig, *, gen: int,
         "decode_s": t_decode,
         "tokens_per_s": batch * len(out) / max(t_decode, 1e-9),
     }
+    if keep_logits:
+        result["logits"] = torch.stack(kept, dim=1)
+    return result
 
 
 def serve_batch(

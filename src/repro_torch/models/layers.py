@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, switch
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.models.declare import DeclTree, ParamDecl
 
@@ -135,9 +135,13 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
+    """q, k, v, RoPE on q and k unless ``cfg.rope`` is False (attention
+    with no position embedding, as Jamba's)."""
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
+    if not switch(cfg, "rope"):
+        return q, k, v
     cos, sin = rope_freqs(cfg, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 

@@ -49,6 +49,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mamba import mamba_block, mamba_decls, mamba_decode_step
 from repro_torch.models.moe import moe_decls, moe_ffn
+from repro_torch.runtime import spans
 
 DecodeCache = Dict[str, Any]
 
@@ -326,10 +327,12 @@ def decode_step(params: Dict, cache: DecodeCache, tokens: torch.Tensor,
 
     ``tokens`` is (B, 1); ``pos`` the position being written.  The cache is
     updated in place and returned: K/V at ``pos``, and each Mamba
-    sub-layer's conv and ssm states.  MoE routes without drops.  Inference
+    sub-layer's conv and ssm states.  MoE routes without drops.  Counts
+    the batch's tokens under ``lm.decode_tokens``.  Inference
     only: runs under ``torch.no_grad()``, so trained weights (autograd
     leaves) decode too.
     """
+    spans.count("lm.decode_tokens", tokens.shape[0])
     x = _embed_tokens(params, tokens, cfg)
     for g in range(cfg.n_groups):
         gp, gc = _layer(params["layers"], g), _layer(cache, g)
@@ -365,10 +368,11 @@ def prefill_step(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     P + S long.  The cache is sized ``max_seq`` (>= that length) so decode
     can continue in place; attention caches the full K/V prefix, Mamba
     sub-layers the conv tail and the final h, from the same pass.  MoE
-    drops at capacity, as in :func:`forward`.  Prefill attention is the
-    flash kernel followed by the padded-head mask, the same attention as
-    :func:`forward` (the reference's prefill leaves the mask out; see
-    ROADMAP.md section 3).  Inference only: runs under
+    drops at capacity, as in :func:`forward`, unless ``cfg.moe_dropless``.
+    Counts the B·(P + S) positions under ``lm.prefill_tokens``.  Prefill
+    attention is the flash kernel followed by the padded-head mask, the
+    same attention as :func:`forward` (the reference's prefill leaves the
+    mask out; see ROADMAP.md section 3).  Inference only: runs under
     ``torch.no_grad()``, which keeps the flash kernel's route for trained
     weights.
     """
@@ -377,6 +381,7 @@ def prefill_step(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     max_seq = max_seq or seq
     if max_seq < seq:
         raise ValueError(f"max_seq {max_seq} < prompt length {seq}")
+    spans.count("lm.prefill_tokens", b * seq)
     positions = torch.arange(seq, dtype=torch.int32, device=x.device)
     cache = init_decode_cache(cfg, b, max_seq, device=x.device)
     for g in range(cfg.n_groups):

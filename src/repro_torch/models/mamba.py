@@ -7,7 +7,9 @@ inverse-softplus ``dt_bias``, the S4D ``a_log`` = log(1..d_state), the
 ``d_skip`` D, ``out_proj``), the same inputs to the recurrence
 h_t = a_t * h_{t-1} + b_t (a_t = exp(dt_t A), A diagonal), and the same
 decode state: the trailing K - 1 inputs of the conv, before the conv, and
-h, float32 whatever the model dtype.
+h, float32 whatever the model dtype.  With ``cfg.ssm_norms`` (published
+Jamba; the reference has none) RMSNorms with weights ``dt_norm``,
+``b_norm`` and ``c_norm`` (eps 1e-6) go on dt, B and C after ``x_proj``.
 
 The recurrence runs over chunks of ``cfg.ssm_chunk`` tokens with h carried
 from chunk to chunk, as in the reference; within a chunk it is a doubling
@@ -29,8 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, switch
 from repro_torch.models.declare import DeclTree, ParamDecl
+from repro_torch.runtime import spans
+
+MIXER = "repro_torch.mamba.mixer"
 
 
 def _a_log_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -51,7 +56,13 @@ def _dt_bias_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
 
 def mamba_decls(cfg: ModelConfig) -> DeclTree:
     d, di, st, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    norms: DeclTree = {}
+    if switch(cfg, "ssm_norms"):
+        norms = {"dt_norm": ParamDecl((dtr,), ("dt_rank",), "ones"),
+                 "b_norm": ParamDecl((st,), ("ssm_state",), "ones"),
+                 "c_norm": ParamDecl((st,), ("ssm_state",), "ones")}
     return {
+        **norms,
         "in_proj": ParamDecl((d, 2 * di), ("embed", "ssm_inner")),
         "conv_w": ParamDecl((cfg.ssm_conv, di), ("conv_kernel", "ssm_inner"),
                             "fan_in", scale=1.0),
@@ -85,12 +96,24 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """RMSNorm over the last axis, eps 1e-6, in float32, cast back to x's
+    dtype (``layers.apply_norm``'s arithmetic)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * w.float()).to(x.dtype)
+
+
 def _ssm_inputs(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
     """Per token (a, bx, C) from the conv output xc (..., di): a and bx
     (..., di, st) and C (..., st), float32."""
     dtr, st = cfg.dt_rank, cfg.ssm_state
     proj = xc @ params["x_proj"].to(xc.dtype)
     dt_raw, b_in, c_in = torch.split(proj, [dtr, st, st], dim=-1)
+    if switch(cfg, "ssm_norms"):
+        dt_raw = _rms_norm(dt_raw, params["dt_norm"])
+        b_in = _rms_norm(b_in, params["b_norm"])
+        c_in = _rms_norm(c_in, params["c_norm"])
     dt = _softplus((dt_raw @ params["dt_proj"].to(xc.dtype)).float()
                    + params["dt_bias"].float())              # (..., di)
     a_mat = -torch.exp(params["a_log"].float())              # (di, st)
@@ -139,6 +162,12 @@ def mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     model dtype, ssm_state (B, di, st) float32) for decode, from the same
     pass.
     """
+    with spans.span(MIXER):
+        return _mamba_block(params, x, cfg, return_state)
+
+
+def _mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 return_state: bool):
     b, l, _ = x.shape
     di, dt = cfg.d_inner, x.dtype
     xz = x @ params["in_proj"].to(dt)
@@ -171,6 +200,12 @@ def mamba_decode_step(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     """One token.  x: (B, 1, d); conv_state (B, K-1, di) the trailing conv
     inputs; ssm_state (B, di, st) float32.  Returns (y (B, 1, d),
     conv_state, ssm_state), the states new tensors."""
+    with spans.span(MIXER):
+        return _mamba_decode_step(params, x, cfg, conv_state, ssm_state)
+
+
+def _mamba_decode_step(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
     di, dt = cfg.d_inner, x.dtype
     xz = x @ params["in_proj"].to(dt)
     xs, z = xz[..., :di], xz[..., di:]                 # (B, 1, di)

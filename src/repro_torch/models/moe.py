@@ -16,6 +16,16 @@ routing and its drops at capacity:
   (E, capacity, d) buffer; dropped choices ride the residual;
 - the expert products are one batched product over the expert axis.
 
+``cfg.router_renorm`` False keeps the softmax's top-k weights as they are,
+and ``cfg.moe_dropless`` (published Jamba; neither is the reference's)
+routes with no capacity (:func:`_dropless`): the (token, choice) pairs
+sorted by expert, each expert's FFN on its own rows alone, in one grouped
+product a weight (``torch._grouped_mm``, whose per-expert offsets stay on
+the card), and each token's outputs added in ascending expert id.  The
+ten reference archs keep ``no_drop``'s capacity path in decode: the
+dry-run traces them on the meta device, where ``torch._grouped_mm`` takes
+bf16 alone.
+
 Two rules the reference leaves to its library are fixed here (ROADMAP.md
 section 3):
 
@@ -44,8 +54,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, switch
 from repro_torch.models.declare import DeclTree, ParamDecl
+from repro_torch.runtime import spans
+
+EXPERTS = "repro_torch.moe.experts"
 
 
 def moe_decls(cfg: ModelConfig) -> DeclTree:
@@ -87,11 +100,13 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def route(params: Dict, x: torch.Tensor, cfg: ModelConfig):
     """(probs (B, S, E), weights (B, S, k), ids (B, S, k)), all float32
-    but the int64 ids; weights renormalised over the chosen experts."""
+    but the int64 ids; weights renormalised over the chosen experts where
+    ``cfg.router_renorm``, else the softmax's own."""
     logits = x.float() @ params["router"].to(x.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_ids = _top_k(probs, cfg.top_k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    if switch(cfg, "router_renorm"):
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     return probs, top_p, top_ids
 
 
@@ -244,20 +259,85 @@ def _group(params: Dict, x: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _grouped_experts(params: Dict, rows: torch.Tensor, offs: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """(N, d) rows sorted by expert -> (N, d): expert e's FFN on rows
+    ``offs[e-1]:offs[e]`` (int32 ends on the rows' device), a grouped
+    product a weight, with :func:`_experts`' arithmetic.  An expert with no
+    rows reads none of its weights."""
+    dt = rows.dtype
+    up = torch._grouped_mm(rows, params["w_up"].to(dt), offs=offs)
+    if cfg.act == "swiglu":
+        gate = torch._grouped_mm(rows, params["w_gate"].to(dt), offs=offs)
+        h = F.silu(gate.float()).to(dt) * up
+    else:
+        h = F.gelu(up.float(), approximate="tanh").to(dt)
+    return torch._grouped_mm(h, params["w_down"].to(dt), offs=offs)
+
+
+def _dropless(params: Dict, x: torch.Tensor, ids: torch.Tensor,
+              w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every routed pair computed: (B, S, d) -> (B, S, d).
+
+    The B·S·k (token, choice) pairs are sorted by expert id, stably, and
+    their rows gathered in that order; each expert's FFN runs on its own
+    rows alone (:func:`_grouped_experts`), with no capacity and no slot
+    buffer; each token's k outputs, times their router weights, are added
+    in ascending expert id, one add after another, as :func:`_group` adds
+    them.  Counts, offsets and orders stay on the card: no host read.
+    Gathers and integer scatters of distinct indices only, so two runs
+    give the same bits.  The B·S·k pairs count under ``moe.routed_pairs``.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n = b * s
+    spans.count("moe.routed_pairs", n * k)
+    flat = ids.reshape(n * k)
+    order = torch.argsort(flat, stable=True)     # sorted place -> pair
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    offs = counts.cumsum(0).to(torch.int32)
+    rows = x.reshape(n, d).index_select(0, order // k)
+    y = _grouped_experts(params, rows, offs, cfg)
+    # each pair's place in y, and each token's choices by expert id
+    place = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n * k, device=x.device))
+    by_expert = torch.argsort(ids.reshape(n, k), dim=-1)
+    at = place.reshape(n, k).gather(1, by_expert)
+    wk = w.reshape(n, k).gather(1, by_expert).to(x.dtype)
+    contrib = y.index_select(0, at.reshape(-1)).reshape(n, k, d)
+    contrib = contrib * wk[..., None]
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out.reshape(b, s, d)
+
+
 def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss () float32).
 
+    With ``cfg.moe_dropless`` every routed pair is computed
+    (:func:`_dropless`), in prefill and decode alike.  Otherwise
     ``no_drop=True`` sizes capacity for every choice, so no token is
-    dropped: the serving semantics of decode.  Otherwise choices past an
+    dropped: the serving semantics of decode; without it, choices past an
     expert's capacity in their group ride the residual (training, forward
     and prefill), so forward and decode logits can differ at saturated
-    experts, as in the reference.
+    experts, as in the reference.  One layer call is the span
+    ``repro_torch.moe.experts``.
     """
+    with spans.span(EXPERTS):
+        return _moe_ffn(params, x, cfg, no_drop)
+
+
+def _moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+             no_drop: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
-    group, cap = grouping(cfg, s, no_drop)
     probs, top_p, top_ids = route(params, x, cfg)
     aux = aux_loss(probs, top_ids, cfg.n_experts)
+    if switch(cfg, "moe_dropless"):
+        return _dropless(params, x, top_ids, top_p, cfg), aux
+    group, cap = grouping(cfg, s, no_drop)
     n_groups = s // group
     if n_groups == 1:
         return _group(params, x, top_ids, top_p, cfg, cap), aux
@@ -274,9 +354,10 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 def routing(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """What :func:`moe_ffn` decides for ``x``: the router's top-k ids and
-    whether each choice was kept, both (B, S, k), choices largest first."""
+    whether each choice was kept, both (B, S, k), choices largest first;
+    every choice kept where :func:`moe_ffn` routes dropless."""
     b, s, _ = x.shape
-    group, cap = grouping(cfg, s, no_drop)
+    group, cap = grouping(cfg, s, no_drop or switch(cfg, "moe_dropless"))
     _probs, _top_p, top_ids = route(params, x, cfg)
     keep = torch.cat([dispatch(top_ids[:, i:i + group], cfg.n_experts,
                                cap).keep for i in range(0, s, group)], dim=1)
