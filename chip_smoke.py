@@ -23,7 +23,12 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    d = 2, k = 6 (bit for bit its plain model, counts exact, within
    fp32 rounding of the float64 sums, two launches bitwise equal; timed
    beside the model and the one-hot product it replaced, its launches
-   those of quickstart and mine_cluster); eps-degree and expansion with a
+   those of quickstart and mine_cluster); the Mamba mixer's selective scan
+   at the jamba2-mini cell's shape (B 2, L 4096, d_inner 8192, d_state 16,
+   bf16 conv output) against its plain model on the card (within 1e-4 /
+   1e-5, two launches bitwise equal), timed beside its bound and the
+   chunked doubling scan it replaced on the same inputs; eps-degree and
+   expansion with a
    ~5% frontier at the one-job path's n = 65536 (d = 4, eps = 2), at the
    service's shape (its first DBSCAN request padded to the bucket,
    n = 16384, with the far-diagonal pads) and at n = 2048: both equal to
@@ -130,7 +135,9 @@ and ``nvcc``.  It imports nothing of JAX or of the reference package.
    depths through ``lm.init_params`` + ``serve.generate`` on the cut
    config), one arch's weights freed before the next: one flash launch an
    attention layer of the prefill (48, 48, 16, 24, 0, 2, 32 at D 96, 40
-   and 40), every one on "tc", none in decode, no mining kernel; logits
+   and 40), every one on "tc", none in decode, one selective-scan launch
+   a Mamba layer of the prefill (falcon-mamba 64, jamba 14), no mining
+   kernel; logits
    finite, tokens in the
    vocabulary; prefill_s, ms per decode token and peak memory printed,
    with a profiler window over one more prefill and 4 decode steps, and
@@ -322,6 +329,14 @@ FUSED_MASKED_FRACTION = 0.25
 LLOYD_SHAPES = (dict(features=4, clusters=8, size=1 << 21),
                 dict(features=2, clusters=6, size=1024))
 FUSED_LARGE_K = dict(n=65536, k=1024)
+# The Mamba mixer's selective scan at the jamba2-mini cell's prefill: 2
+# prompts of 4,096 tokens, d_inner 8,192, d_state 16, bf16 conv output.
+SCAN_SHAPE = dict(batch=2, length=4096, d_inner=8192, d_state=16)
+# The chunk of the doubling scan it replaced (the configs' ssm_chunk).
+SCAN_PLAIN_CHUNK = 128
+# Exponentials a second on the SFUs: 16 a clock an SM, 132 SMs, at the
+# H100 SXM's 1.98 GHz boost clock.
+SFU_EXP_RATE = 16 * 132 * 1.98e9
 # Both K-Means kernels either side of the plan's choice of search form
 # (d > 96 is wide), at a common embedding width, and at the embedding
 # fit's small n (its k = 4 takes the wide search's exact form): (n, k, d).
@@ -646,7 +661,8 @@ def build(build_mod) -> dict:
     t0 = time.time()
     build_mod.build_all()
     log(f"build: {time.time() - t0:.2f} s")
-    for name in ("attention", "distance", "flash_sm90", "fused", "neighbor"):
+    for name in ("attention", "distance", "flash_sm90", "fused", "neighbor",
+                 "selective_scan"):
         regs = sorted({ln.split(":", 1)[-1].strip()
                        for ln in build_mod.build_log(name).splitlines()
                        if "Used" in ln or "spill" in ln})
@@ -1020,6 +1036,106 @@ def kernel_lloyd(torch, mods) -> dict:
                              "onehot.T @ x, onehot.sum(0)",
                 shape=first["shape"], shapes=shapes,
                 launch_shape=[first["blocks"], dref.LLOYD_THREADS])
+
+
+def _doubling_scan(torch, mamba, xc, dt, b, c, a, d):
+    """The chunked doubling scan ``models/mamba.py`` ran before the kernel
+    (and still runs off the card or under autograd), on the scan's own
+    inputs: chunks of SCAN_PLAIN_CHUNK tokens, ``_scan_chunk`` within,
+    then the C-contraction and D x."""
+    bsz, length, di = xc.shape
+    h = torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    ys = []
+    with torch.no_grad():
+        for s0 in range(0, length, SCAN_PLAIN_CHUNK):
+            sl = slice(s0, s0 + SCAN_PLAIN_CHUNK)
+            at = torch.exp(dt[:, sl, :, None] * a)
+            bx = (dt[:, sl] * xc[:, sl].float())[..., None] * b[:, sl, None, :]
+            hs = mamba._scan_chunk(h, at, bx)
+            h = hs[:, -1]
+            ys.append(torch.einsum("blis,bls->bli", hs, c[:, sl]))
+            del at, bx, hs
+        return torch.cat(ys, dim=1) + d * xc.float(), h
+
+
+def kernel_selective_scan(torch, mods) -> dict:
+    """The selective scan (``sops.selective_scan``) at SCAN_SHAPE on inputs
+    shaped as the cell's (dt after a softplus, A the S4D init's scaled):
+    within 1e-4 / 1e-5 of its plain model (``sref.selective_scan_ref``, run
+    on the card) and of the doubling scan, two launches bitwise equal.
+    Times the kernel (CUDA-graph replays; queued calls by events) beside
+    its bound, the plain model and the doubling scan it replaced."""
+    sops, sref, mamba = mods["sops"], mods["sref"], mods["mamba"]
+    bsz, length, di, st = (SCAN_SHAPE["batch"], SCAN_SHAPE["length"],
+                           SCAN_SHAPE["d_inner"], SCAN_SHAPE["d_state"])
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    xc = torch.randn(bsz, length, di, generator=g, device=DEV).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, length, di, generator=g, device=DEV) - 3.0)
+    b = torch.randn(bsz, length, st, generator=g, device=DEV)
+    c = torch.randn(bsz, length, st, generator=g, device=DEV)
+    a = -(torch.arange(1, st + 1, dtype=torch.float32, device=DEV)
+          * (1 + 0.1 * torch.rand(di, st, generator=g, device=DEV)))
+    d = 1 + 0.1 * torch.randn(di, generator=g, device=DEV)
+    args = (xc, dt, b, c, a.contiguous(), d)
+    what = f"selective_scan B={bsz} L={length} d_inner={di} d_state={st}"
+    y, h = sops.selective_scan(*args)
+    y2, h2 = sops.selective_scan(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(y, y2)) and bool(torch.equal(h, h2)),
+          f"{what}: two launches differ")
+    t0 = time.time()
+    ry, rh = sref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    dy, dh = _doubling_scan(torch, mamba, *args)
+    errs = {}
+    for name, got, want in (("y vs plain model", y, ry),
+                            ("h vs plain model", h, rh),
+                            ("y vs doubling scan", y, dy),
+                            ("h vs doubling scan", h, dh)):
+        err = (got - want).abs()
+        errs[name] = float(err.max())
+        check(bool((err <= 1e-5 + 1e-4 * want.abs()).all()),
+              f"{what}: {name} differ by {errs[name]!r}, past 1e-4 "
+              f"relative + 1e-5")
+    del ry, rh, dy, dh
+    ms = graph_ms(torch, lambda: sops.selective_scan(*args), calls=10,
+                  reps=5)
+    events = time_ms(torch, lambda: sops.selective_scan(*args), reps=20)
+    doubling = time_ms(torch, lambda: _doubling_scan(torch, mamba, *args),
+                       reps=3)
+    n_bytes = (bsz * length * di * (xc.element_size() + 4 + 4)
+               + 2 * bsz * length * st * 4 + di * (st + 1) * 4
+               + bsz * di * st * 4)
+    n_exp = bsz * length * di * st
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_exp = n_exp / SFU_EXP_RATE * 1e3
+    bound_ms, by = max((t_bytes, "bytes"), (t_exp, "exponentials"))
+    log(f"{what}: within 1e-4 / 1e-5 of its plain model and of the doubling "
+        f"scan (max |diff| {errs!r}), two launches bitwise equal; device "
+        f"{ms!r} ms (queued {events!r}), bound {bound_ms!r} ms ({by}: "
+        f"{n_bytes} bytes at 3.35 TB/s {t_bytes!r} ms, {n_exp} "
+        f"exponentials at {SFU_EXP_RATE:.4g}/s {t_exp!r} ms), plain model "
+        f"{plain!r} ms, doubling scan (chunk {SCAN_PLAIN_CHUNK}) "
+        f"{doubling!r} ms")
+    del y, h, y2, h2, args, xc, dt
+    torch.cuda.empty_cache()
+    return dict(name="selective_scan", route="cuda",
+                source="src/repro_torch/csrc/selective_scan.cu",
+                replaces="none (the reference's scan, "
+                         "src/repro/models/mamba.py:107, is "
+                         "jax.lax.associative_scan)",
+                max_abs_err=errs["y vs plain model"], ms=ms,
+                events_ms=events, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=by, library_ms=doubling,
+                library_call=f"the doubling scan, chunk {SCAN_PLAIN_CHUNK} "
+                             f"(models/mamba.py:_scan_chunk)",
+                shape=f"B={bsz} L={length} d_inner={di} d_state={st} bf16",
+                launch_shape=[[-(-di // (sref.SCAN_THREADS
+                                         // sref.SCAN_LANES)), bsz],
+                              sref.SCAN_THREADS])
 
 
 def _service_dbscan_item(mods):
@@ -2360,8 +2476,13 @@ def _check_served(torch, counters, what, out, cfg, batch, gen) -> dict:
           f"{what}: flash launches {launches['flash_attention']} by route "
           f"{by_route}; want {want} (one per attention layer of the "
           f"prefill, none in decode), all \"tc\"")
+    n_mamba = cfg.n_groups * sum(m == "mamba" for m, _ff in cfg.pattern)
+    check(launches["selective_scan"] == n_mamba,
+          f"{what}: {launches['selective_scan']} selective-scan launches; "
+          f"want {n_mamba} (one per Mamba layer of the prefill, none in "
+          f"decode)")
     check(all(n == 0 for name, n in launches.items()
-              if name != "flash_attention"),
+              if name not in ("flash_attention", "selective_scan")),
           f"{what}: a mining kernel launched: {launches}")
     check(out["logits_finite"], f"{what}: a logit is not finite")
     toks = out["generated"]
@@ -2525,7 +2646,7 @@ def serve_wide_arch(torch, mods, counters, arch, layers, card) -> dict:
                 decode_ms=out["decode_s"] / n * 1e3,
                 tokens_per_s=out["tokens_per_s"], wall_s=wall,
                 peak_gb=peak / 1e9, flash=launches["flash_attention"],
-                params=cfg.n_params())
+                scan=launches["selective_scan"], params=cfg.n_params())
     del out
     if params is None:
         params = lm.init_params(torch.Generator(device=DEV).manual_seed(SEED),
@@ -2542,7 +2663,8 @@ def serve_wide_arch(torch, mods, counters, arch, layers, card) -> dict:
         f"{line['decode_ms']!r} ms per decode token, tokens_per_s "
         f"{line['tokens_per_s']!r}, wall with weight init {wall:.3f} s, "
         f"peak memory {line['peak_gb']:.3f} GB, flash launches "
-        f"{line['flash']} all \"tc\", logits finite"
+        f"{line['flash']} all \"tc\", selective-scan launches "
+        f"{line['scan']}, logits finite"
         + (f", MoE choices dropped at capacity in the prefill "
            f"{line['dropped_share']!r}" if cfg.n_experts else "")
         + f"; card {card}")
@@ -4096,9 +4218,10 @@ def load_modules() -> tuple:
     from repro_torch.kernels.distance import fused as fops
     from repro_torch.kernels.distance import ops as dops, ref as dref
     from repro_torch.kernels.neighbor import ops as nops, ref as nref
+    from repro_torch.kernels.ssm import ops as sops, ref as sref
     from repro_torch.launch import mine, serve, serve_mine
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import frontends, layers, lm, moe
+    from repro_torch.models import frontends, layers, lm, mamba, moe
     from repro_torch import optim, service
     from repro_torch.checkpoint import store
     from repro_torch.train import step as tstep
@@ -4114,7 +4237,8 @@ def load_modules() -> tuple:
                 synth=synth, mine=mine, kmeans=kmeans, dbscan=dbscan,
                 cancel=cancel, serve_mine=serve_mine, service=service,
                 aops=aops, aref=aref, serve=serve, lm=lm, layers=layers,
-                moe=moe, frontends=frontends,
+                moe=moe, frontends=frontends, sops=sops, sref=sref,
+                mamba=mamba,
                 configs=configs, dist=dist, tstep=tstep, optim=optim,
                 launch_train=launch_train, store=store, tree_map=tree_map,
                 ex_quickstart=quickstart, ex_mine_cluster=mine_cluster,
@@ -4131,7 +4255,8 @@ def load_modules() -> tuple:
                 "expand_frontier_cross": nops.expand_frontier_cross,
                 "reduce_partials": fops.reduce_partials,
                 "lloyd_sums": fops.lloyd_sums,
-                "flash_attention": aops.flash_attention}
+                "flash_attention": aops.flash_attention,
+                "selective_scan": sops.selective_scan}
     return mods, counters
 
 
@@ -4164,7 +4289,8 @@ def main() -> int:
             sass = build(_build)
             rows = [kernel_assign(torch, mods, sass["distance"]),
                     kernel_fused(torch, mods, sass["fused"]),
-                    kernel_lloyd(torch, mods)]
+                    kernel_lloyd(torch, mods),
+                    kernel_selective_scan(torch, mods)]
             wide_rows(torch, mods)
             rows += [*kernel_neighbor(torch, mods, sass["neighbor"]),
                      *kernel_cross(torch, mods, sass["neighbor"]),
@@ -4249,6 +4375,9 @@ def main() -> int:
         "fused_masked_assign_update"]
     # the narrow-row sums run on the examples' one-job fits alone
     launches["lloyd_sums"] = ex_launches["lloyd_sums"]
+    # the selective scan runs in phase 3e's Mamba-arch prefills
+    launches["selective_scan"] = (families["falcon-mamba-7b"]["scan"]
+                                  + families["jamba-v0.1-52b"]["scan"])
     ex_launches = dict(ex_launches, assign_clusters_d2048=ex_assign)
     for row in rows:
         row["launches"] = launches[row["name"]]

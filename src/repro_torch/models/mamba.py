@@ -11,15 +11,26 @@ h, float32 whatever the model dtype.  With ``cfg.ssm_norms`` (published
 Jamba; the reference has none) RMSNorms with weights ``dt_norm``,
 ``b_norm`` and ``c_norm`` (eps 1e-6) go on dt, B and C after ``x_proj``.
 
-The recurrence runs over chunks of ``cfg.ssm_chunk`` tokens with h carried
-from chunk to chunk, as in the reference; within a chunk it is a doubling
-(Hillis-Steele) scan of the same combine the reference's
-``associative_scan`` applies, log2(chunk) passes over (B, chunk, d_inner,
-d_state) tensors, never a step a token.  The summation order differs from
-the reference's (ROADMAP.md section 3), within the float tolerance.  The
-last chunk may be shorter, so nothing is padded and nothing can leak into
-the carried state.  Under autograd each chunk is recomputed in the
-backward pass (the reference's ``jax.checkpoint``).
+Two paths run the recurrence, chosen from what the call can observe
+(:func:`_takes_scan_kernel`):
+
+- On the card without autograd (a prefill, a no-grad forward) and for
+  d_state <= 16 (``kernels/ssm``'s limit; every configuration here), one
+  launch of the selective-scan kernel (``csrc/selective_scan.cu``, wrapper
+  ``kernels/ssm/ops.py:selective_scan``) walks the whole sequence a token
+  at a time with the states in registers, and ``ssm_chunk`` is not read.
+- Everywhere else (the host, the meta device of the dry-run, training
+  under autograd, wider states) the recurrence runs over chunks of
+  ``cfg.ssm_chunk`` tokens with h carried from chunk to chunk, as in the
+  reference; within a chunk it is a doubling (Hillis-Steele) scan of the
+  same combine the reference's ``associative_scan`` applies, log2(chunk)
+  passes over (B, chunk, d_inner, d_state) tensors.  The last chunk may
+  be shorter, so nothing is padded and nothing can leak into the carried
+  state.  Under autograd each chunk is recomputed in the backward pass
+  (the reference's ``jax.checkpoint``).
+
+Both add in another order than the reference's scan (ROADMAP.md section
+3), within the float tolerance.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, switch
+from repro_torch.kernels.ssm.ops import SCAN_MAX_STATE, selective_scan
 from repro_torch.models.declare import DeclTree, ParamDecl
 from repro_torch.runtime import spans
 
@@ -104,9 +116,10 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (xf * torch.rsqrt(var + 1e-6) * w.float()).to(x.dtype)
 
 
-def _ssm_inputs(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
-    """Per token (a, bx, C) from the conv output xc (..., di): a and bx
-    (..., di, st) and C (..., st), float32."""
+def _ssm_coeffs(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
+    """Per token (dt (..., di), A (di, st), B (..., st), C (..., st)) from
+    the conv output xc (..., di), all float32; dt after the softplus, A =
+    -exp(a_log)."""
     dtr, st = cfg.dt_rank, cfg.ssm_state
     proj = xc @ params["x_proj"].to(xc.dtype)
     dt_raw, b_in, c_in = torch.split(proj, [dtr, st, st], dim=-1)
@@ -117,9 +130,16 @@ def _ssm_inputs(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
     dt = _softplus((dt_raw @ params["dt_proj"].to(xc.dtype)).float()
                    + params["dt_bias"].float())              # (..., di)
     a_mat = -torch.exp(params["a_log"].float())              # (di, st)
+    return dt, a_mat, b_in.float(), c_in.float()
+
+
+def _ssm_inputs(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
+    """Per token (a, bx, C) from the conv output xc (..., di): a and bx
+    (..., di, st) and C (..., st), float32."""
+    dt, a_mat, b_in, c_in = _ssm_coeffs(params, xc, cfg)
     a = torch.exp(dt[..., None] * a_mat)
-    bx = (dt * xc.float())[..., None] * b_in.float()[..., None, :]
-    return a, bx, c_in.float()
+    bx = (dt * xc.float())[..., None] * b_in[..., None, :]
+    return a, bx, c_in
 
 
 def _scan_chunk(h0: torch.Tensor, a: torch.Tensor, bx: torch.Tensor
@@ -166,6 +186,14 @@ def mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         return _mamba_block(params, x, cfg, return_state)
 
 
+def _takes_scan_kernel(x: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether the recurrence goes to the selective-scan kernel: x on the
+    card, no autograd (the kernel has no backward), and d_state within
+    the kernel's registers."""
+    return (x.is_cuda and not torch.is_grad_enabled()
+            and cfg.ssm_state <= SCAN_MAX_STATE)
+
+
 def _mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  return_state: bool):
     b, l, _ = x.shape
@@ -175,17 +203,23 @@ def _mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     xc = F.silu(_causal_conv(xs, params["conv_w"].to(dt),
                              params["conv_b"].to(dt)).float()).to(dt)
 
-    chunk = min(cfg.ssm_chunk, l)
-    recompute = torch.is_grad_enabled() and xc.requires_grad
-    h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for start in range(0, l, chunk):
-        args = (params, h, xc[:, start:start + chunk], cfg)
-        h, yc = (checkpoint(_chunk_body, *args, use_reentrant=False)
-                 if recompute else _chunk_body(*args))
-        ys.append(yc)
-    y = torch.cat(ys, dim=1) + params["d_skip"].float() * xc.float()
+    if _takes_scan_kernel(x, cfg):
+        dt_s, a_mat, b_in, c_in = _ssm_coeffs(params, xc, cfg)
+        y, h = selective_scan(xc, dt_s, b_in.contiguous(),
+                              c_in.contiguous(), a_mat,
+                              params["d_skip"].float().contiguous())
+    else:
+        chunk = min(cfg.ssm_chunk, l)
+        recompute = torch.is_grad_enabled() and xc.requires_grad
+        h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32,
+                        device=x.device)
+        ys = []
+        for start in range(0, l, chunk):
+            args = (params, h, xc[:, start:start + chunk], cfg)
+            h, yc = (checkpoint(_chunk_body, *args, use_reentrant=False)
+                     if recompute else _chunk_body(*args))
+            ys.append(yc)
+        y = torch.cat(ys, dim=1) + params["d_skip"].float() * xc.float()
     y = y.to(dt) * F.silu(z.float()).to(dt)
     out = y @ params["out_proj"].to(dt)
     if return_state:
